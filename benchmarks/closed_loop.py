@@ -71,7 +71,7 @@ def closed_loop_mpc(model, solver: str = "tdunes", nsim: int = 30,
         solver = "ipm"
         opts = opts or IpmOpts(tol=1e-8, max_iter=30)
     elif solver == "ipm_ms":
-        # crown+chains IPM (the engine's TPU speed layout) — exercised on
+        # crown+chains IPM (the scenario-batched layout) — exercised on
         # the same closed loop for parity with the generic path
         opts = opts or IpmOpts(tol=1e-8, max_iter=30)
     elif solver == "sdunes":

@@ -1,22 +1,20 @@
 """Scaling ANALYSIS for the scenario-sharded multistage solver
 (VERDICT r2 #9 / BASELINE.md scaling row).
 
-Real >=2-host slices are not available in this environment, so this
-artifact does two things instead of pretending the virtual-CPU numbers
-mean hardware scaling:
+Two parts; neither is a hardware measurement:
 
 1. **Model** the sharded per-iteration execution exactly: per-device
    load balance (chain nodes per device vs the replicated crown) and the
    collective BYTES each Newton iteration moves over the mesh axis,
-   counted from the actual array shapes GSPMD communicates:
+   counted from the actual array shapes GSPMD communicates (f64):
      * chain -> crown root contributions cqr [S, nz]   (all-gather)
      * chain Schur complements schur0 [S, nx, nx]       (all-gather)
      * chain-root duals dlam[rid] (crown replicated -> no gather back)
      * termination norm / dual value / Armijo dot       (scalar psums)
-   From bandwidth numbers (ICI ~4.5e10 B/s effective per v5e chip,
-   DCN ~2.5e9 B/s per host) it derives a communication-time share and a
-   predicted 2-host weak-scaling efficiency together with the Amdahl
-   term from the replicated crown.
+   Next to them stand the byte counts audited from the compiled HLO
+   (tests/test_hlo_audit.py). Turning bytes into time needs a measured
+   per-iteration time and link bandwidth on the cards; neither is
+   measured yet.
 
 2. **Measure** the virtual-device sweep (benchmarks/scaling.py) and
    label it for what it is: N virtual devices multiplexing ONE shared
@@ -24,13 +22,14 @@ mean hardware scaling:
    and validates only that the collectives compile and execute.
 
 Run: python -m benchmarks.scaling_analysis [--skip-virtual]
-Writes benchmarks/results/scaling_round4.jsonl.
+Writes benchmarks/results/scaling.jsonl.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 import numpy as np
@@ -39,80 +38,46 @@ sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
 # quadcopter-class headline workload (bench.py)
 MD, NR, NH, NM = 4, 4, 20, 4
-ICI_BW = 4.5e10   # B/s effective all-gather bandwidth per v5e chip (ring)
-DCN_BW = 2.5e9    # B/s per host across data-center network
-# measured on one v5e (prof_chain max_iter probes, BENCH_NOTES round 3):
-T_ITER_F32 = 0.436e-3   # coarse-phase Newton iteration, seconds
-CROWN_SHARE = 0.35      # fraction of the iteration spent on the
-                        # (replicated) crown + scalar glue; bounded above
-                        # by the crown kernel + crown-eval fusion count
-                        # share of the per-iteration launches
 
 
-def model(n_devices: int, S: int, link: str = "ici"):
+def model(n_devices: int, S: int):
     """Per-iteration communication/load model for S scenarios on D devices."""
     from benchmarks.models import spring_mass_chain
     from treeqp_tpu.solvers.tdunes_multistage import split_multistage
-    import jax
 
-    cpu = jax.devices("cpu")[0]
-    with jax.default_device(cpu):
-        qp, _ = spring_mass_chain(nm=NM, md=MD, Nr=NR, Nh=NH)
-        ms = split_multistage(qp)
+    qp, _ = spring_mass_chain(nm=NM, md=MD, Nr=NR, Nh=NH)
+    ms = split_multistage(qp)
     meta = ms.meta
     nx, nz, L = meta.nx, meta.nx + meta.nu, meta.L
-    Nc = meta.crown_topo.Nn
     assert meta.S == S
 
-    f32 = 4
+    f64 = 8
     # collective bytes per Newton iteration over the scenario axis
-    ag_cqr = S * nz * f32                 # chain root contributions
-    ag_schur = S * nx * nx * f32          # chain Schur into the crown
+    ag_cqr = S * nz * f64                 # chain root contributions
+    ag_schur = S * nx * nx * f64          # chain Schur into the crown
     psums = 6 * 8                         # termination/dual/dot scalars
-    bytes_per_iter = ag_cqr + ag_schur + psums
-    bw = ICI_BW if link == "ici" else DCN_BW
-    t_comm = bytes_per_iter / bw
-
-    # load balance: chains split perfectly (identical shapes); the crown
-    # is replicated (Amdahl term — every device redoes the crown work)
-    chain_nodes = S * L
-    t_chain = T_ITER_F32 * (1 - CROWN_SHARE)
-    t_crown = T_ITER_F32 * CROWN_SHARE
-    t_dev = t_chain / n_devices + t_crown + t_comm
-    # weak scaling: S grows with D, so per-device chain work is constant
-    # and the crown grows proportionally (crown nodes ~ S * md/(md-1))
-    t_weak = t_chain + t_crown + t_comm  # both terms constant per device
-    eff_weak = (t_chain + t_crown) / t_weak
+    # load balance: chains split evenly (identical shapes); the crown is
+    # replicated (Amdahl term — every device redoes the crown work)
     return dict(
-        devices=n_devices, scenarios=S, link=link,
-        chain_nodes=chain_nodes, crown_nodes=Nc,
-        collective_bytes_per_iter=int(bytes_per_iter),
-        comm_time_us=round(t_comm * 1e6, 2),
-        iter_time_model_ms=round(t_dev * 1e3, 4),
-        weak_efficiency_pred=round(eff_weak, 4),
-        strong_speedup_pred=round(T_ITER_F32 / t_dev, 2))
+        devices=n_devices, scenarios=S,
+        chain_nodes_per_device=S * L // n_devices,
+        crown_nodes=meta.crown_topo.Nn,
+        collective_bytes_per_iter=int(ag_cqr + ag_schur + psums))
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--skip-virtual", action="store_true")
-    ap.add_argument("--out",
-                    default="benchmarks/results/scaling_round4.jsonl")
+    ap.add_argument("--out", default="benchmarks/results/scaling.jsonl")
     args = ap.parse_args(argv)
 
-    rows = []
-    # model: 1..8 chips on ICI (one v5e tray) and the 2-host DCN boundary
-    for d in (1, 2, 4, 8):
-        rows.append({"kind": "model", **model(d, MD**NR, "ici")})
-    rows.append({"kind": "model", **model(2, MD**NR, "dcn"),
-                 "note": "2 hosts over DCN (v5e pods ride ICI intra-pod; "
-                         "this is the conservative cross-pod bound)"})
-    # round-4 HLO audit (tests/test_hlo_audit.py, treeqp_tpu/parallel/
+    rows = [{"kind": "model", **model(d, MD**NR)} for d in (1, 2, 4, 8)]
+    # HLO audit (tests/test_hlo_audit.py, treeqp_tpu/parallel/
     # hlo_audit.py): the GSPMD auto-partitioned jit path as COMPILED moves
-    # ~6.37 MB/iter on the headline tree — ~85x this model's minimal
-    # count (chain-shaped gathers around lane-layout transposes,
-    # full-width reduction workspaces, crown-shaped contribution
-    # all-reduces), i.e. a ~32% comm share at ICI bandwidth. The model
+    # ~6.37 MB/iter on the headline tree — far above this model's minimal
+    # count (chain-shaped gathers around layout transposes, full-width
+    # reduction workspaces, crown-shaped contribution all-reduces). The
+    # model
     # row above is the MINIMAL boundary traffic the algorithm needs (and
     # what an explicit shard_map port of the iteration pays); the audited
     # row is what jit+GSPMD produces today. Weak-scaling predictions from
@@ -120,9 +85,7 @@ def main(argv=None):
     # path.
     audited = 6_367_656
     rows.append({"kind": "hlo-audit", "devices": 8, "scenarios": MD**NR,
-                 "link": "ici", "collective_bytes_per_iter": audited,
-                 "comm_time_us": round(audited / ICI_BW * 1e6, 2),
-                 "comm_share_of_iter": round(audited / ICI_BW / T_ITER_F32, 3),
+                 "collective_bytes_per_iter": audited,
                  "note": "GSPMD-auto jit path, compiled at 256 scenarios "
                          "on an 8-device mesh; see tests/test_hlo_audit.py"})
     # the explicit-SPMD shard_map path (parallel/shard_solver.py): the
@@ -130,16 +93,11 @@ def main(argv=None):
     # root contributions [S, nz] / Schur complements [S, nx, nx] + scalar
     # psums) — audited at ~0.42 MB/iter static (includes the f64 phase,
     # refinement gathers and the rarely-taken sequential line-search
-    # branch), 15x below GSPMD-auto and within ~6x of this model's
-    # single-phase minimal count. Weak-scaling predictions apply to THIS
-    # path.
+    # branch), 15x below GSPMD-auto.
     audited_shmap = 420_996
     rows.append({"kind": "hlo-audit-shard-map", "devices": 8,
-                 "scenarios": MD**NR, "link": "ici",
+                 "scenarios": MD**NR,
                  "collective_bytes_per_iter": audited_shmap,
-                 "comm_time_us": round(audited_shmap / ICI_BW * 1e6, 2),
-                 "comm_share_of_iter":
-                     round(audited_shmap / ICI_BW / T_ITER_F32, 4),
                  "note": "explicit-SPMD shard_map path "
                          "(parallel/shard_solver.py), compiled at 256 "
                          "scenarios on an 8-device mesh; "
@@ -165,6 +123,7 @@ def main(argv=None):
                          "run with XLA_FLAGS=--xla_force_host_platform_"
                          "device_count=8 JAX_PLATFORMS=cpu"})
 
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         for r in rows:
             f.write(json.dumps(r) + "\n")

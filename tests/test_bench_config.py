@@ -1,12 +1,13 @@
-"""Coverage for the TPU headline-bench configuration on CPU.
+"""Coverage for the mixed-precision solver configuration on CPU.
 
-The bench opts (factor_dtype=float32, refine_steps=1, unsafeguarded,
-chain_backend=pallas, reg_type=always, two-phase f32/f64) exercise code
-paths the plain f64/xla tests never touch; the Pallas kernels run in
-interpret mode on CPU, so the exact bench pipeline is testable here
-(ADVICE round 1: the bench configuration had zero test coverage).
+These opts (factor_dtype=float32, refine_steps=1, unsafeguarded,
+reg_type=always, two-phase f32/f64) exercise code paths the plain f64
+tests never touch; with the chain sweeps routed through the Triton
+kernels as on a GPU (Pallas interpreter on the CPU), the whole pipeline
+is testable here.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,7 +20,7 @@ from treeqp_tpu.solvers.tdunes_multistage import (
 
 BENCH_OPTS = TdunesOpts(stage_solver="clipping", tol=1e-8, max_iter=120,
                         factor_dtype="float32", refine_steps=1,
-                        refine_safeguard=False, chain_backend="pallas",
+                        refine_safeguard=False,
                         reg_type="always", reg_value=1e-6,
                         f32_phase_tol=1e-4)
 REF_OPTS = TdunesOpts(stage_solver="clipping", tol=1e-8, max_iter=120)
@@ -32,14 +33,18 @@ def problem():
 
 
 @pytest.mark.slow
-def test_bench_opts_match_f64_xla(problem):
-    """The full bench pipeline (pallas interpret + f32 phase + refinement)
-    agrees with the plain f64/xla path."""
+def test_bench_opts_match_f64_xla(problem, monkeypatch):
+    """The mixed-precision pipeline (Triton sweeps + f32 phase +
+    refinement) agrees with the plain f64 path with the XLA scans."""
     qp, ms = problem
-    cro, cho, info = tdunes_ms_solve(ms, None, None, BENCH_OPTS)
-    out = merge_output(ms, cro, cho, info)
     ref = tdunes_ms_solve(ms, None, None, REF_OPTS)
     out_ref = merge_output(ms, *ref)
+    from treeqp_tpu.solvers import tdunes_multistage as tm
+    jax.clear_caches()
+    monkeypatch.setattr(tm, "_triton_sweeps", lambda meta, shard=None: True)
+    cro, cho, info = tdunes_ms_solve(ms, None, None, BENCH_OPTS)
+    out = merge_output(ms, cro, cho, info)
+    jax.clear_caches()
     assert int(info["status"]) == 0
     assert float(max_kkt_residual(qp, out)) < 1e-8
     assert float(jnp.max(jnp.abs(out.x - out_ref.x))) < 1e-6
@@ -50,7 +55,7 @@ def test_bench_opts_match_f64_xla(problem):
 def test_df64_phase_matches_f64(problem):
     """The df64 (two-f32 double-float) final phase reproduces the native
     f64 phase: same Newton semantics, solution to ~1e-9, KKT <= 1e-8
-    (solvers/ms_df64.py; the TPU bench runs this exact configuration)."""
+    (solvers/ms_df64.py)."""
     import dataclasses
     qp, ms = problem
     opts = dataclasses.replace(BENCH_OPTS, df64_phase=True)

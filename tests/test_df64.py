@@ -119,7 +119,7 @@ def test_df64_newton_step_matches_f64_loop():
     ms = tm.split_multistage(qp)
     base = TdunesOpts(stage_solver="clipping", tol=1e-9, max_iter=40,
                       factor_dtype="float32", refine_steps=2,
-                      refine_safeguard=False, chain_backend="xla",
+                      refine_safeguard=False,
                       reg_type="always", reg_value=1e-6)
     # a warm point: a few plain iterations in
     cro, cho, _ = tm.tdunes_ms_solve(

@@ -1,11 +1,11 @@
 """Fast representatives of the slow-marked test families (round 5,
 verdict task 9): the default gate must touch sharding byte budgets and
-kernel parity daily, not only in CI's full matrix.
+the chain kernels daily, not only in CI's full matrix.
 
 * one HLO collective audit at a 2-device mesh on a tiny tree
   (the test_hlo_audit.py family);
-* one interpret-mode Pallas crown-kernel parity case at tiny shapes
-  (the test_crown_kernels / test_tpu_parity family).
+* one multistage solve through the Triton chain sweeps in interpret mode
+  at tiny shapes (the test_chain_kernels family).
 """
 
 import numpy as np
@@ -38,29 +38,32 @@ def test_audit_representative_2dev():
     assert big_gather < max(chain_bytes, 1), big_gather
 
 
-def test_crown_kernel_parity_representative():
-    """Tiny crown factor+solve through the Pallas kernels (interpret mode
-    on CPU) against the XLA scan path — the kernel-parity family's
-    daily-gate case (full suite: test_crown_kernels.py, slow)."""
+def test_chain_kernel_solve_representative(monkeypatch):
+    """A tiny multistage solve with the Triton chain sweeps (Pallas
+    interpreter on CPU) agrees with the plain XLA scans — the kernel-path
+    daily-gate case (kernel-level cases: test_chain_kernels.py)."""
     from benchmarks.models import spring_mass_chain
-    from treeqp_tpu.solvers.tdunes import (
-        TdunesOpts, _get_prep, _tree_chol_factor, _tree_chol_solve)
-    from treeqp_tpu.ops import crown_kernels as ckr
+    from treeqp_tpu.core.kkt import max_kkt_residual
+    from treeqp_tpu.solvers import tdunes_multistage as tm
+    from treeqp_tpu.solvers.tdunes import TdunesOpts
+    from treeqp_tpu.solvers.tdunes_multistage import (
+        split_multistage, tdunes_ms_solve, merge_output)
 
-    qp, _ = spring_mass_chain(nm=2, md=2, Nr=2, Nh=4)
-    prep = _get_prep(qp.topo)
-    rng = np.random.default_rng(0)
-    G, nxm, NpG = prep.G, prep.nxm, prep.NpG
-    A = rng.standard_normal((NpG, G, G)).astype(np.float32)
-    W = jnp.asarray(A @ A.transpose(0, 2, 1) + 3.0 * np.eye(G, dtype=np.float32))
-    Ut = jnp.asarray(0.3 * rng.standard_normal((NpG, nxm, G)).astype(np.float32))
-    rg = jnp.asarray(rng.standard_normal((NpG, G)).astype(np.float32))
-    opts = TdunesOpts(factor_dtype="float32", reg_type="always",
-                      reg_value=1e-6, chain_backend="xla")
-    assert ckr.crown_supported(prep, opts)
-    f_ref = _tree_chol_factor(W, Ut, opts, prep)
-    dl_ref = _tree_chol_solve(f_ref, rg, opts, prep)
-    CholW, CholUt = ckr.crown_factor(W, Ut, prep, reg=1e-6)
-    dl_k = ckr.crown_solve(CholW, CholUt, rg, prep)
-    np.testing.assert_allclose(np.asarray(dl_k), np.asarray(dl_ref),
-                               atol=2e-4)
+    qp, _ = spring_mass_chain(nm=2, md=2, Nr=2, Nh=6)
+    ms = split_multistage(qp)
+    opts = TdunesOpts(stage_solver="clipping", tol=1e-10, max_iter=60)
+    outs = {}
+    for triton in (False, True):
+        # the sweep path is chosen while the solve is traced
+        jax.clear_caches()
+        monkeypatch.setattr(tm, "_triton_sweeps",
+                            lambda meta, shard=None, t=triton: t)
+        cro, cho, info = tdunes_ms_solve(ms, None, None, opts)
+        assert int(info["status"]) == 0
+        outs[triton] = (merge_output(ms, cro, cho, info), int(info["iter"]))
+    jax.clear_caches()
+    (o_x, it_x), (o_p, it_p) = outs[False], outs[True]
+    assert it_p == it_x
+    assert float(max_kkt_residual(qp, o_p)) < 1e-10
+    np.testing.assert_allclose(np.asarray(o_p.x), np.asarray(o_x.x),
+                               atol=1e-10)

@@ -44,7 +44,7 @@ def _ms_compiled(md, Nr, Nh, nm, n_devices):
     ms = shard_multistage(ms, mesh)
     opts = TdunesOpts(stage_solver="clipping", tol=1e-8, max_iter=20,
                       factor_dtype="float32", refine_steps=1,
-                      refine_safeguard=False, chain_backend="xla",
+                      refine_safeguard=False,
                       reg_type="always", reg_value=1e-6,
                       f32_phase_tol=1e-4, df64_phase=True)
     fn = jax.jit(lambda m: tdunes_ms_solve(m, None, None, opts))
@@ -85,8 +85,8 @@ def test_tdunes_ms_headline_size_byte_budget():
     Round-4 finding this test pins down: GSPMD's auto-partitioning of
     the jit path moves ~6.4 MB/iter (chain-shaped [S*L*nx] gathers into
     the lane-layout transposes, full-width reduction workspaces, crown
-    contribution all-reduces) — ~85x the hand model's minimal count and
-    a ~32% comm share at ICI bandwidth. The budget here is a regression
+    contribution all-reduces) — ~85x the hand model's minimal count.
+    The budget here is a regression
     canary at today's audited level; the explicit shard_map multichip
     path is the design answer (scaling_analysis.py carries the audited
     numbers for both)."""
@@ -234,7 +234,7 @@ def test_shard_map_path_reaches_model_bytes():
     mesh = scenario_mesh(jax.devices()[:8])
     opts = TdunesOpts(stage_solver="clipping", tol=1e-8, max_iter=20,
                       factor_dtype="float32", refine_steps=1,
-                      refine_safeguard=False, chain_backend="xla",
+                      refine_safeguard=False,
                       reg_type="always", reg_value=1e-6,
                       f32_phase_tol=1e-4, df64_phase=True)
     fn = jax.jit(lambda m: tdunes_ms_solve_shmap(m, None, None, opts, mesh))

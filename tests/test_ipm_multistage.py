@@ -75,23 +75,6 @@ def test_warm_start_cuts_iterations(problem):
 
 
 @pytest.mark.slow
-def test_pallas_riccati_kernels(problem):
-    """The lane-batched Pallas chain-Riccati path (interpret mode on CPU)
-    must agree with the XLA scan path and reach the tolerance with f32
-    factors + exact-KKT refinement."""
-    qp, ms = problem
-    ref = ipm_ms_solve(ms, IpmOpts(tol=1e-10, max_iter=40))
-    cro, cho, info = ipm_ms_solve(
-        ms, IpmOpts(tol=1e-8, max_iter=40, factor_dtype="float32",
-                    chain_backend="pallas", f32_until=1e-8, refine_steps=1))
-    out = merge_output(ms, cro, cho, info)
-    out_ref = merge_output(ms, *ref)
-    assert int(info["status"]) == 0
-    assert float(max_kkt_residual(qp, out)) < 1e-8
-    assert float(jnp.max(jnp.abs(out.x - out_ref.x))) < 1e-7
-
-
-@pytest.mark.slow
 def test_ipm_ms_sharded_matches_unsharded():
     """The multistage IPM under a scenario-sharded mesh (GSPMD inserts the
     chain<->crown collectives) must match the unsharded solve — the same
@@ -126,26 +109,6 @@ def test_closed_loop_ipm_ms():
     assert log.kkt_violations == 0
     assert all(s == 0 for s in log.status.tolist())
     assert log.iters[1:].max() < log.iters[0]
-
-
-@pytest.mark.slow
-def test_pallas_riccati_multi_tile():
-    """S > 128 exercises the lane-tiled grid of the chain-Riccati kernels
-    (regression: per-tile scratch must be tile-width, not full-width)."""
-    from benchmarks.models import spring_mass_chain
-
-    qp, _ = spring_mass_chain(nm=1, md=12, Nr=2, Nh=5)
-    ms = split_multistage(qp)
-    assert ms.meta.S == 144  # two lane tiles
-    ref = ipm_ms_solve(ms, IpmOpts(tol=1e-9, max_iter=40))
-    cro, cho, info = ipm_ms_solve(
-        ms, IpmOpts(tol=1e-8, max_iter=40, factor_dtype="float32",
-                    chain_backend="pallas", f32_until=1e-8, refine_steps=1))
-    out = merge_output(ms, cro, cho, info)
-    out_ref = merge_output(ms, *ref)
-    assert int(info["status"]) == 0
-    assert float(max_kkt_residual(qp, out)) < 1e-8
-    assert float(jnp.max(jnp.abs(out.x - out_ref.x))) < 1e-4
 
 
 # ---------------------------------------------------------------------------
@@ -191,7 +154,7 @@ def test_general_rows_mixed_precision(general_problem):
     still meets the KKT bar (dense chain Riccati in f32)."""
     qp, ms = general_problem
     opts = IpmOpts(tol=1e-9, max_iter=40, factor_dtype="float32",
-                   refine_steps=1, chain_backend="pallas")
+                   refine_steps=1)
     cro, cho, info = ipm_ms_solve(ms, opts)
     out = merge_output(ms, cro, cho, info)
     assert int(info["status"]) == 0

@@ -1,5 +1,5 @@
 """Scenario-sharded multistage solver tests: equivalence with the generic
-tree solver and correctness under a multi-device mesh (the TPU translation of
+tree solver and correctness under a multi-device mesh (the translation of
 the reference CI matrix — same numerics single-device vs sharded)."""
 
 import jax

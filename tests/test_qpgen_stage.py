@@ -154,8 +154,7 @@ def test_qpgen_hotstart_skips_admm():
 @pytest.mark.slow
 def test_qpgen_f32_factor_parity(constrained_qp):
     """qpgen_factor_dtype=float32 (f32 working-set factors + iterative
-    refinement / Newton-Schulz elimination-matrix refinement — the TPU
-    emulated-f64 Cholesky treatment) must reproduce the f64-factor path:
+    refinement / Newton-Schulz elimination-matrix refinement) must reproduce the f64-factor path:
     same Newton iteration count, same solution to f64 quality."""
     qp = constrained_qp
     o64 = TdunesOpts(stage_solver="qpgen", tol=1e-9, max_iter=100)

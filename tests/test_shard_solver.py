@@ -109,7 +109,7 @@ def test_shmap_two_phase_speed_opts():
     mesh = scenario_mesh(jax.devices()[:8])
     opts = TdunesOpts(stage_solver="clipping", tol=1e-8, max_iter=60,
                       factor_dtype="float32", refine_steps=1,
-                      refine_safeguard=False, chain_backend="xla",
+                      refine_safeguard=False,
                       reg_type="always", reg_value=1e-6, f32_phase_tol=1e-4)
     cro, cho, info = jax.jit(
         lambda m: tdunes_ms_solve_shmap(m, None, None, opts, mesh))(ms)

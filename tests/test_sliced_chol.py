@@ -2,7 +2,7 @@
 scan-based path: same factors, same Newton directions, on generic trees.
 
 The sliced path replaces the `.at[idx].add` scatters of the level sweep
-(which serialize on TPU) with static slices + one-hot slot matmuls; the
+with static slices + one-hot slot matmuls; the
 math is identical (dual_Newton_tree.c:668-775)."""
 
 import numpy as np
@@ -86,8 +86,8 @@ def test_split_factor_solve_parity():
 
 
 def test_split_solver_end_to_end(monkeypatch):
-    """Full qpgen solve with the split factorization forced (the TPU
-    default on multistage-shaped trees)."""
+    """Full qpgen solve with the split factorization forced on a
+    multistage-shaped tree."""
     monkeypatch.setenv("TREEQP_SLICED_CHOL", "1")
     from benchmarks.models import with_general_rows
     qp0, _ = spring_mass_chain(nm=2, md=3, Nr=2, Nh=8)

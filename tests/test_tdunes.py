@@ -92,19 +92,19 @@ def test_eliminated_x0_reembedding():
 
 # ---------------------------------------------------------------------------
 # generic-tree speed path (VERDICT r2 #1): the two-phase f32 -> refined-f64
-# schedule + crown Pallas kernels on asymmetric / pruned / general trees
+# schedule on asymmetric / pruned / general trees
 
 
 GENERIC_SPEED_OPTS = TdunesOpts(
     stage_solver="clipping", tol=1e-8, max_iter=120,
     factor_dtype="float32", refine_steps=1, refine_safeguard=False,
-    chain_backend="pallas", reg_type="always", reg_value=1e-6,
+    reg_type="always", reg_value=1e-6,
     f32_phase_tol=1e-4)
 
 
 @pytest.mark.slow
 def test_generic_two_phase_asymmetric_tree():
-    """Two-phase + crown kernels on the thesis-example-class ASYMMETRIC
+    """Two-phase schedule on the thesis-example-class ASYMMETRIC
     tree matches the plain f64 XLA path (the reference's speed substrate
     is shape-agnostic, dual_Newton_tree.c:668-775)."""
     from treeqp_tpu.utils.tree import TreeStructure
@@ -143,7 +143,7 @@ def test_generic_two_phase_asymmetric_tree():
 
 @pytest.mark.slow
 def test_generic_two_phase_pruned_tree():
-    """Two-phase + crown kernels on a PRUNED (fault-tolerance-class)
+    """Two-phase schedule on a PRUNED (fault-tolerance-class)
     scenario tree: prune a multistage tree to 5 scenarios (asymmetric
     result), solve with the speed opts, compare against plain f64."""
     from benchmarks.models import spring_mass_chain
@@ -170,7 +170,7 @@ def test_generic_two_phase_general_constraints():
     qp, extras = load_tree_qp_file(
         "/root/reference/examples/random_qp_utils/data03.json")
     opts = dataclasses.replace(GENERIC_SPEED_OPTS, stage_solver="qpgen",
-                               chain_backend="xla", tol=1e-8)
+                               tol=1e-8)
     out = tdunes_solve(qp, None, opts)
     assert int(out.info["status"]) == 0
     assert float(max_kkt_residual(qp, out)) < 1e-8

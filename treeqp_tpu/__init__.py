@@ -1,4 +1,4 @@
-"""treeqp_tpu — a TPU-native tree-sparse QP solver framework.
+"""treeqp_tpu — a tree-sparse QP solver framework for accelerators.
 
 A from-scratch JAX/XLA/Pallas re-design with the capabilities of treeQP
 (dual Newton on the tree formulation, dual Newton on scenario decomposition,
@@ -7,15 +7,16 @@ level-synchronous batched tree linear algebra instead of per-node BLAS calls.
 
 Double precision is the correctness path of a QP solver (the reference's
 unit tests require 1e-12 KKT residuals, examples/random_qp.c:249); we enable
-x64 at import. Solvers accept a dtype argument for the mixed-precision TPU
-speed path.
+x64 at import. Solvers accept a dtype argument for the mixed-precision
+path.
 """
 
 import jax
 
 jax.config.update("jax_enable_x64", True)
-# On TPU, f32 matmuls default to bf16 inputs — catastrophic for factorization
-# accuracy. A QP solver must use true f32/f64 matmul precision everywhere.
+# On the H100, f32 matmuls may default to TF32 inputs (10-bit mantissa) —
+# catastrophic for factorization accuracy. A QP solver must use true f32/f64
+# matmul precision everywhere.
 jax.config.update("jax_default_matmul_precision", "highest")
 
 from treeqp_tpu.utils.tree import TreeStructure, number_of_nodes_multistage  # noqa: E402

@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from treeqp_tpu.core.qp_data import TreeQPIn, TreeQPOut
+from treeqp_tpu.utils.tree import kid_sum
 
 __all__ = ["kkt_residuals", "max_kkt_residual"]
 
@@ -53,8 +54,8 @@ def kkt_residuals(qp: TreeQPIn, out: TreeQPOut) -> dict:
     # + sum over children: A_c' lam_c into parent rows
     contrib_x = jnp.einsum("nji,nj->ni", qp.A, lam)  # [Nn, nxm] (row c: A_c' lam_c)
     contrib_u = jnp.einsum("nji,nj->ni", qp.B, lam)
-    st_x = st_x + jax.ops.segment_sum(contrib_x[1:], par[1:], num_segments=topo.Nn)
-    st_u = st_u + jax.ops.segment_sum(contrib_u[1:], par[1:], num_segments=topo.Nn)
+    st_x = st_x + kid_sum(contrib_x, topo)
+    st_u = st_u + kid_sum(contrib_u, topo)
     st_x, st_u = st_x * xm, st_u * um
 
     # --- dynamics feasibility (non-root)

@@ -1,6 +1,6 @@
 """Tree QP data containers (the ``tree_qp_in`` / ``tree_qp_out`` equivalents).
 
-TPU-native re-design of the reference QP data layer
+Accelerator re-design of the reference QP data layer
 (``treeqp/src/tree_qp_common.{h,c}``):
 
 * Instead of per-node BLASFEO matrices carved out of an arena

@@ -9,7 +9,7 @@ pairs (sl, su) >= 0 with quadratic+linear penalties,
 
 Instead of threading slack blocks through the IPM KKT system (HPIPM's
 in-engine route), this module performs the EXACT reduction to a hard tree
-QP — the TPU-native choice, because it reuses the existing batched Riccati
+QP — the batched choice, because it reuses the existing batched Riccati
 unchanged and keeps static shapes:
 
 * each softened coordinate's slack pair joins the node's CONTROL vector

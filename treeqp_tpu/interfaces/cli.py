@@ -16,7 +16,7 @@ with multipliers, KKT residual, timing and the updated warm start.
 Multistage dispatch (``options.multistage``, default "auto"): on a
 multistage scenario tree with clipping-class data, tdunes routes to the
 crown+chains solver (tdunes_ms) and hpmpc/hpipm/ipm to the multistage IPM
-(ipm_ms) — the only solvers with the TPU speed path — returning the merged
+(ipm_ms) — the scenario-batched engines — returning the merged
 full-tree output in the identical JSON schema. Set ``multistage: false``
 to force the generic solvers (the reference front-end has one solver per
 name; here the multistage engines are a dispatch of the same names,
@@ -287,15 +287,14 @@ def run(argv=None):
     ap.add_argument("init", nargs="?", default=None)
     ap.add_argument("-o", "--output", default="qp_out.json")
     ap.add_argument("--nrep", type=int, default=None)
-    ap.add_argument("--device", choices=["cpu", "default"], default="cpu",
-                    help="cpu (default: predictable for batch solves) or the "
-                         "environment's default accelerator")
+    ap.add_argument("--device", choices=["default", "cpu"], default="default",
+                    help="default: JAX's default device (the accelerator "
+                         "where there is one); cpu: force the CPU")
     ap.add_argument("--eliminate-x0", action="store_true",
                     help="fold a pinned root state into the data before "
                          "solving (the reference front-end always does this, "
                          "solve_qp_json.cpp:350-353)")
     args = ap.parse_args(argv)
-
     if args.device == "cpu":
         jax.config.update("jax_platforms", "cpu")
 
@@ -328,7 +327,7 @@ def serve(argv=None):
     latency after the first solve on each problem shape
     (treeqp_cpp_interface.cpp:130-430 workspace persistence analog)."""
     ap = argparse.ArgumentParser(prog="treeqp-solve --serve")
-    ap.add_argument("--device", choices=["cpu", "default"], default="cpu")
+    ap.add_argument("--device", choices=["default", "cpu"], default="default")
     args = ap.parse_args(argv)
     if args.device == "cpu":
         jax.config.update("jax_platforms", "cpu")
@@ -358,6 +357,14 @@ def serve(argv=None):
 
 
 def main(argv=None):
+    import os
+
+    from treeqp_tpu.utils.platform import enable_compile_cache
+
+    # persistent compile cache at the repository root, unless
+    # JAX_COMPILATION_CACHE_DIR says otherwise
+    enable_compile_cache(os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))))
     argv = sys.argv[1:] if argv is None else argv
     if "--serve" in argv:
         argv = [a for a in argv if a != "--serve"]

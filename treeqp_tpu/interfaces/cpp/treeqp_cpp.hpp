@@ -4,7 +4,7 @@
 // (interfaces/treeqp_cpp/treeqp_cpp_interface.hpp:43-175: TreeQp owning
 // qp_in/qp_out with string-keyed setters, abstract QpSolver with
 // TdunesSolver/HpmpcSolver and SetOption overloads), redesigned for the
-// TPU-native architecture: the compute path lives in the JAX runtime, and a
+// JAX-native architecture: the compute path lives in the JAX runtime, and a
 // C++ application embeds the framework through the same JSON protocol the
 // reference's own benchmark harness uses to drive its solve_qp_json
 // executable (benchmark/utils/treeqp_solve.m:6-17,

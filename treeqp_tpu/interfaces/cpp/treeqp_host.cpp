@@ -1,6 +1,6 @@
 // treeqp_host — native host-side runtime for treeqp_tpu.
 //
-// The TPU-native analog of the reference's C runtime layer: the tree
+// The JAX-native analog of the reference's C runtime layer: the tree
 // graph-builder (treeqp/utils/tree.c: tree_create, setup_multistage_tree),
 // the level scheduler behind the per-depth batched kernels, and the padded
 // stacked-array packer that replaces the reference's arena-carved BLASFEO

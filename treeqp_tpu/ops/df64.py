@@ -1,11 +1,8 @@
 """Double-float ("df64") arithmetic: ~double precision from f32 pairs.
 
-TPU v5e has no hardware f64; XLA's emulated f64 runs each scalar op as a
-slow multi-op software sequence that resists fusion (~16x slower per op
-than f32, measured in BENCH_NOTES.md). The dual-Newton f64 phase only
-needs high precision in a handful of places (residuals, dual values, the
-exact Hessian action for iterative refinement) — everything else runs in
-f32. This module provides those places with classic error-free-transform
+The dual-Newton f64 phase only needs high precision in a handful of
+places (residuals, dual values, the exact Hessian action for iterative
+refinement) — everything else can run in f32. This module provides those places with classic error-free-transform
 double-float arithmetic (Dekker 1971; Hida-Li-Bailey QD): every value is
 an unevaluated sum hi + lo of two f32s, giving ~2^-48 ≈ 3.6e-15 relative
 accuracy, and every operation is a short sequence of ordinary f32 ops
@@ -13,12 +10,10 @@ that XLA fuses like any other elementwise code.
 
 Correctness requirements (validated by tests/test_df64.py on every
 backend):
-  * f32 ops are IEEE round-to-nearest (TPU VPU is),
+  * f32 ops are IEEE round-to-nearest,
   * the compiler must not reassociate floating-point expressions
     (XLA preserves value semantics; `--xla_allow_excess_precision` only
-    widens intermediate precision, which is harmless here — but the
-    TPU-guarded test asserts the error-free transforms actually hold
-    after compilation).
+    widens intermediate precision, which is harmless here).
 
 Used by the dual-Newton "polish" phase (tdunes_multistage.py) replacing
 the reference's f64 BLASFEO ops (treeQP computes everything in f64;
@@ -43,9 +38,7 @@ __all__ = [
     "dot", "where", "clip", "less", "scale_pow2",
 ]
 
-# 2^12 + 1 (Veltkamp split for f32). np scalar, not jnp: a jnp
-# constant becomes a captured array when these ops trace inside a
-# Pallas kernel (ops/df_eval_kernels.py), which pallas_call rejects.
+# 2^12 + 1 (Veltkamp split for f32)
 _SPLITTER = np.float32(4097.0)
 
 

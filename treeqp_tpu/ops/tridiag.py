@@ -3,13 +3,13 @@
 The sdunes "Jay" system over adjacent-scenario couplings is block
 tridiagonal with P = Ns-1 blocks; the reference factors it sequentially
 ("NOTE: Cannot be parallelized", dual_Newton_scenarios.c:815-817) and our
-portable path is a lax.scan — P sequential steps of tiny ops, which on TPU
-is launch-latency-bound (~P kernel dispatches per Newton iteration at
-Ns = 256). Cyclic reduction (even-odd elimination) solves the same system
+portable path is a lax.scan — P sequential steps of tiny ops, which on an
+accelerator is launch-latency-bound (~P kernel launches per Newton
+iteration at Ns = 256). Cyclic reduction (even-odd elimination) solves the same system
 in ceil(log2 P) levels of BATCHED ops: each level Cholesky-factors all odd
 blocks at once, folds them into their even neighbours, and recurses on the
 halved system (SURVEY 5.8's prescription for the scenario-coupling solve).
-All ops are jnp-batched — the same code runs on CPU/TPU and shards.
+All ops are jnp-batched — the same code runs on CPU/GPU and shards.
 
 Convention: diag [P, b, b] (SPD blocks), off [P-1, b, b] with
 off[i] = M[i+1, i], rhs [P, b].
@@ -31,7 +31,7 @@ def _chol(D, shift, reg_tol):
         return jnp.linalg.cholesky(D)
     b = D.shape[-1]
     rows = jnp.arange(b)
-    D1 = D.at[..., rows, rows].add(shift)
+    D1 = D.at[..., rows, rows].add(shift, unique_indices=True)
     if reg_tol < 0:
         return jnp.linalg.cholesky(D1)
     L0 = jnp.linalg.cholesky(D)

@@ -30,7 +30,7 @@ import re
 from dataclasses import dataclass
 
 __all__ = ["CollectiveOp", "collect_collectives", "audit_compiled",
-           "newton_iteration_bytes"]
+           "newton_iteration_bytes", "atomic_scatter_adds"]
 
 _COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter",
                 "collective-permute", "all-to-all")
@@ -133,3 +133,21 @@ def audit_compiled(compiled, solver_name: str, scan_weight: int = 1) -> dict:
         census[o.kind] = census.get(o.kind, 0) + 1
     return dict(ops=ops, in_iter=in_iter, per_iter_bytes=per_iter,
                 largest_collective_bytes=largest, census=census)
+
+
+def atomic_scatter_adds(stablehlo_text: str) -> list[str]:
+    """Scatter-adds of a lowered module (``jax.jit(f).lower(...).as_text()``)
+    that do not declare unique indices. On a GPU these run on atomics and
+    add colliding updates in arrival order, so their results are not
+    bitwise repeatable; every device of a sharded solve that computes the
+    replicated crown with one can branch apart from the others."""
+    lines = stablehlo_text.splitlines()
+    found = []
+    for i, line in enumerate(lines):
+        if '"stablehlo.scatter"' not in line or "unique_indices = true" in line:
+            continue
+        # the combiner region follows on the next lines: ^bb0(...), op, return
+        body = " ".join(lines[i + 1:i + 4])
+        if "stablehlo.add" in body:
+            found.append(line.strip())
+    return found

@@ -4,11 +4,17 @@ The scaling design (SURVEY.md 5.8, replacing the reference's single-process
 OpenMP backend): scenarios/chains are sharded over a 1-D device mesh axis
 ``"scen"`` with ``jax.sharding``; the crown (non-anticipativity coupling)
 stays replicated. XLA/GSPMD inserts the all-gathers for the chain-root duals
-and Schur complements and the psum/pmax for termination norms — the
-collectives ride ICI on a real slice.
+and Schur complements and the psum/pmax for termination norms.
+
+Every device computes the replicated crown itself and the solvers' loops
+branch on it, so the crown code sums in a fixed order (no atomic
+scatter-adds, ``tests/test_deterministic_ops.py``): the devices' copies
+agree bitwise and take the same branches.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import jax
 import numpy as np
@@ -28,10 +34,14 @@ def scenario_mesh(devices=None) -> Mesh:
 def shard_multistage(ms: MultistageQP, mesh: Mesh) -> MultistageQP:
     """Place chain arrays sharded over "scen" (dim 0) and the crown replicated.
 
-    The scenario count S must be divisible by the mesh size.
+    The scenario count S must be divisible by the mesh size. The result's
+    ``meta.chain_shards`` records the split, so the solver runs its chain
+    sweeps as scans, which GSPMD partitions.
     """
     n = mesh.devices.size
     assert ms.meta.S % n == 0, f"S={ms.meta.S} not divisible by {n} devices"
+    ms = dataclasses.replace(
+        ms, meta=dataclasses.replace(ms.meta, chain_shards=n))
     chain_sh = NamedSharding(mesh, P("scen"))
     repl = NamedSharding(mesh, P())
 

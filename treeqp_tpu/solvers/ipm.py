@@ -1,6 +1,6 @@
 """Tree-structured primal-dual interior-point method (HPIPM capability class).
 
-From-scratch TPU-native replacement for the reference's external HPMPC/HPIPM
+From-scratch JAX replacement for the reference's external HPMPC/HPIPM
 engines (``treeqp/src/hpmpc_tree.c`` / ``hpipm_tree.c`` marshal into
 ``d_tree_ip2_res_mpc_hard_libstr`` / ``d_solve_tree_ocp_qp_ipm``):
 
@@ -33,7 +33,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from treeqp_tpu.core.qp_data import TreeQPIn, TreeQPOut, TREEQP_INF
-from treeqp_tpu.utils.tree import TreeStructure
+from treeqp_tpu.utils.tree import TreeStructure, add_by_slot, kid_sum
 
 __all__ = ["IpmOpts", "ipm_solve"]
 
@@ -64,17 +64,16 @@ class IpmOpts:
     tau_frac: float = 0.995  # fraction-to-boundary
     # fraction-to-boundary for instances WITH general C/D rows: the
     # aggressive 0.995 drives slacks so close to the boundary that the
-    # dense late-barrier KKT systems exceed what TPU-emulated-f64 Riccati
-    # + refinement can solve (measured res_g floor ~2e-8 on the
-    # 256-scenario tree); the centered 0.95 converges to ~5e-10 in the
-    # same iteration count. Box-only instances keep tau_frac.
+    # dense late-barrier KKT systems exceed what the Riccati recursion +
+    # refinement can solve (res_g floor ~2e-8 on the 256-scenario tree);
+    # the centered 0.95 converges to ~5e-10 in the same iteration count. Box-only instances keep tau_frac.
     tau_frac_general: float = 0.95
     reg_eps: float = 0.0  # static regularization added to Muu diagonals
     # warm start (reference warm_start flag, hpmpc_tree.h:56 /
     # hpipm_tree.c:88): slack/dual floor when initializing from a previous
     # solution — keeps the start strictly interior
     ws_eps: float = 1e-3
-    # --- TPU mixed-precision path (the engine-speed analog of the tdunes
+    # --- mixed-precision path (the engine-speed analog of the tdunes
     # factor_dtype machinery; HPIPM mode=SPEED counterpart). With
     # factor_dtype="float32" the tree-Riccati factorization + solves run in
     # f32 while residuals/steps stay in the data dtype; IPM residuals are
@@ -85,20 +84,16 @@ class IpmOpts:
     # to close the last digits.
     factor_dtype: str = "same"  # same | float32
     f32_until: float = 1e-5  # residual switch point of the f32 phase
-    # chain-sweep backend of the multistage IPM (ipm_multistage): "pallas"
-    # fuses each whole length-L Riccati sweep into one lane-batched TPU
-    # kernel (ops/riccati_kernels.py); applies to f32-factored iterations
-    chain_backend: str = "xla"  # xla | pallas
     # optional iterative refinement of each Riccati solve against the
     # exact data-dtype KKT operator (per-solve cost: one KKT apply + one
-    # re-solve per step). Lowers the attainable res_g floor — on TPU the
-    # emulated-f64 Riccati floor can sit right at a tight tolerance.
+    # re-solve per step). Lowers the attainable res_g floor when the
+    # Riccati floor sits right at a tight tolerance.
     refine_steps: int = 0
     # stall exit: if max(res4) has not improved by >=10% for this many
     # consecutive iterations, stop and return the BEST iterate seen (0
     # disables). Without it, an unattainable tolerance drives the barrier
     # to its floor and the late-barrier systems (gamma ~ 1/mu) blow up the
-    # stationarity residual (measured on TPU, BENCH_NOTES.md).
+    # stationarity residual.
     stall_patience: int = 4
     # PROFILE>=2 analog: per-iteration [res_g res_b res_d res_m alpha mu
     # sigma] into info["hist"] ([max_iter, 7], NaN-padded)
@@ -120,6 +115,9 @@ class _IpmPrep:
         Nn = topo.Nn
         self.par = topo.parent_np.copy()
         self.par[0] = Nn  # root's parent -> scratch row
+        # sibling slot of each node (and of the scratch row Nn)
+        self.sibx = np.concatenate([topo.sib_index, [0]]).astype(np.int32)
+        self.K = max(topo.Kmax, 1)
         st = topo.stage
         self.n_stages = topo.Nh + 1
         Smax = max(int(np.sum(st == s)) for s in range(self.n_stages))
@@ -221,6 +219,7 @@ def _riccati_factor(qp: TreeQPIn, Hbar, prep: _IpmPrep, opts: IpmOpts,
     Hx = jnp.concatenate([Hbar, jnp.eye(nz, dtype=dt)[None]], axis=0)
     ABx = jnp.concatenate([AB, jnp.zeros((1, nxm, nz), dt)], axis=0)
     parx = jnp.asarray(np.concatenate([prep.par, [Nn]]).astype(np.int32))
+    sibx = jnp.asarray(prep.sibx)
 
     xs = (jnp.asarray(prep.bwd_idx), jnp.asarray(prep.bwd_valid))
 
@@ -244,8 +243,7 @@ def _riccati_factor(qp: TreeQPIn, Hbar, prep: _IpmPrep, opts: IpmOpts,
         # contribution to the parent: W_c = [A B]' P_c [A B] for the edge into c
         ABc = ABx[safe]
         Wc = ABc.swapaxes(1, 2) @ Pb @ ABc
-        tgt = jnp.where(valid, parx[safe], Nn)
-        Wsum = Wsum.at[tgt].add(Wc)
+        Wsum = add_by_slot(Wsum, parx[safe], sibx[safe], valid, Wc, prep.K)
         return (P, Luu, K, Mxu, Wsum), None
 
     (P, Luu, K, Mxu, _), _ = jax.lax.scan(
@@ -272,6 +270,7 @@ def _riccati_solve(qp: TreeQPIn, fact, rg, rb, prep: _IpmPrep, wsum0=None):
     ABx = jnp.concatenate([AB, jnp.zeros((1, nxm, nz), dt)], axis=0)
     rbx = jnp.concatenate([rb, jnp.zeros((1, nxm), dt)], axis=0)
     parx = jnp.asarray(np.concatenate([prep.par, [Nn]]).astype(np.int32))
+    sibx = jnp.asarray(prep.sibx)
 
     p = jnp.zeros((Nn + 1, nxm), dt)
     k = jnp.zeros((Nn + 1, num), dt)
@@ -296,8 +295,7 @@ def _riccati_solve(qp: TreeQPIn, fact, rg, rb, prep: _IpmPrep, wsum0=None):
         # contribution to parent: w_c = [A B]'(P_c rb_c + p_c)
         v = jnp.einsum("bxy,by->bx", P[safe], rbx[safe]) + pb
         wc = jnp.einsum("bxz,bx->bz", ABx[safe], v)
-        tgt = jnp.where(valid, parx[safe], Nn)
-        wsum = wsum.at[tgt].add(wc)
+        wsum = add_by_slot(wsum, parx[safe], sibx[safe], valid, wc, prep.K)
         return (p, k, wsum), None
 
     (p, k, _), _ = jax.lax.scan(bwd, (p, k, wsum), bxs)
@@ -350,8 +348,7 @@ def _kkt_apply(qp: TreeQPIn, Hbar, dz, dlam, prep: _IpmPrep, nrxm, zmask):
     r1 = jnp.einsum("nij,nj->ni", Hbar, dz)
     r1 = r1.at[:, :nxm].add(-dlam * nrxm)
     contrib = jnp.einsum("nxz,nx->nz", AB, dlam * nrxm)
-    r1 = (r1 + jax.ops.segment_sum(contrib[1:], par[1:], num_segments=Nn)) \
-        * zmask
+    r1 = (r1 + kid_sum(contrib, topo)) * zmask
     r2 = (dz[:, :nxm] - jnp.einsum("nxz,nz->nx", AB, dz[par])) * nrxm
     return r1, r2
 
@@ -369,29 +366,16 @@ def ipm_solve(qp: TreeQPIn, opts: IpmOpts = IpmOpts(), ws=None) -> TreeQPOut:
     multipliers, floored at ``opts.ws_eps`` to stay strictly interior;
     consecutive MPC steps then converge in a fraction of the cold-start
     iterations.
-
-    On diagonal-Hessian box-only instances (the clipping class) with
-    ``opts.chain_backend="pallas"``, the f32-phase Riccati recursions run
-    as ONE fused Pallas launch over the whole tree (ops/crown_riccati.py)
-    — the generic-tree speed path, shape-agnostic like the reference's
-    BLASFEO substrate (dual_Newton_tree.c:668-775).
     """
-    diag_box = False
-    if (opts.chain_backend == "pallas" and qp.topo.ncm == 0
-            and not isinstance(qp.Q, jax.core.Tracer)):
-        from treeqp_tpu.solvers.tdunes import clipping_applicable
-        diag_box = clipping_applicable(qp)
-    return _ipm_solve_jit(qp, opts, ws, diag_box)
+    return _ipm_solve_jit(qp, opts, ws)
 
 
-@partial(jax.jit, static_argnames=("opts", "diag_box"))
-def _ipm_solve_jit(qp: TreeQPIn, opts: IpmOpts = IpmOpts(), ws=None,
-                   diag_box: bool = False) -> TreeQPOut:
+@partial(jax.jit, static_argnames=("opts",))
+def _ipm_solve_jit(qp: TreeQPIn, opts: IpmOpts = IpmOpts(),
+                   ws=None) -> TreeQPOut:
     topo = qp.topo
     prep = _get_ipm_prep(topo)
     dt = qp.dtype
-    from treeqp_tpu.solvers.tdunes import _tpu_const_barrier
-    qp = _tpu_const_barrier(qp)  # see tdunes._tpu_const_barrier
     has_general = max(topo.nc) > 0  # static: general C/D rows present
     Nn, nxm, num = topo.Nn, topo.nxm, topo.num
     nz = nxm + num
@@ -414,7 +398,7 @@ def _ipm_solve_jit(qp: TreeQPIn, opts: IpmOpts = IpmOpts(), ws=None,
         rg = rg.at[:, :nxm].add(-lam * nrxm)
         AB = jnp.concatenate([qp.A, qp.B], axis=2)
         contrib = jnp.einsum("nxz,nx->nz", AB, lam * nrxm)
-        rg = rg + jax.ops.segment_sum(contrib[1:], par[1:], num_segments=Nn)
+        rg = rg + kid_sum(contrib, topo)
         rg = rg * zmask
         # res_b
         zp = z[par]
@@ -491,33 +475,10 @@ def _ipm_solve_jit(qp: TreeQPIn, opts: IpmOpts = IpmOpts(), ws=None,
         rhs_g_aff, gamma = kkt_rhs(rg, rb, rd_lo, rd_hi, rm_lo, rm_hi,
                                    s_lo, s_hi, l_lo, l_hi)
         Hbar = H + jnp.einsum("ngi,ng,ngj->nij", G, gamma, G)
-        # fused whole-tree Riccati Pallas kernel on the f32 phase of
-        # diagonal-Hessian box-only instances (G = [I; I], so the barrier
-        # matrix stays diagonal: hbar = diag(H) + gamma)
-        use_crown = diag_box and fdt == jnp.float32
-        if use_crown:
-            from treeqp_tpu.ops import crown_riccati as ck
-            use_crown = ck.crown_ric_supported(prep, nz)
-        if use_crown:
-            from treeqp_tpu.ops import crown_riccati as ck
-            hbar_diag = (jnp.diagonal(H, axis1=1, axis2=2)
-                         + gamma[:, :nz]).astype(jnp.float32)
-            AB = jnp.concatenate([qp.A, qp.B], axis=2).astype(jnp.float32)
-            wz = jnp.zeros((Nn, nz, nz), jnp.float32)
-            fact = ck.crown_ric_factor(hbar_diag, AB, wz, prep, nx=nxm,
-                                       reg=opts.reg_eps)
-            wv = jnp.zeros((Nn, nz), jnp.float32)
+        fact = _riccati_factor(qp, Hbar, prep, opts, fdt)
 
-            def one_solve(rg_, rb_):
-                dz_, dlam_ = ck.crown_ric_solve(
-                    fact, rg_.astype(jnp.float32), rb_.astype(jnp.float32),
-                    wv, prep)
-                return dz_.astype(rg_.dtype), dlam_.astype(rg_.dtype)
-        else:
-            fact = _riccati_factor(qp, Hbar, prep, opts, fdt)
-
-            def one_solve(rg_, rb_):
-                return _riccati_solve(qp, fact, rg_, rb_, prep)
+        def one_solve(rg_, rb_):
+            return _riccati_solve(qp, fact, rg_, rb_, prep)
 
         def rsolve(rg_, rb_):
             dz_, dlam_ = one_solve(rg_, rb_)

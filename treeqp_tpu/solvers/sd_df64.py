@@ -1,9 +1,8 @@
 """df64 (double-float) final phase of the sdunes dual-Newton solve.
 
-VERDICT r3 #3: sdunes was the one engine without the full precision
-schedule — its data-dtype phase ran stage solves, residuals, dual values
-and the refinement Hessian action in XLA-emulated f64 (~16x per-op cost
-on TPU). This module mirrors solvers/ms_df64.py for the scenario
+It runs the data-dtype phase of sdunes (stage solves, residuals, dual
+values and the refinement Hessian action) in two-f32 double-float
+arithmetic instead of native f64. This module mirrors solvers/ms_df64.py for the scenario
 decomposition: every high-precision quantity is an (hi, lo) f32 pair
 manipulated with the error-free transforms of ops/df64, while the f32
 machinery — banded per-scenario factorization (_sd_factor /

@@ -1,6 +1,6 @@
 """sdunes — dual Newton on scenario decomposition.
 
-TPU-native re-design of ``treeqp/src/dual_Newton_scenarios.{h,c}``. The
+Batched array re-design of ``treeqp/src/dual_Newton_scenarios.{h,c}``. The
 multistage tree is decomposed into ``Ns = md**Nr`` full-horizon scenarios;
 per-node costs are split across the scenarios traversing the node
 (un-scaling at dual_Newton_scenarios.c:1884-1898); dynamics inside each
@@ -25,10 +25,10 @@ Architectural translation:
   over adjacent scenario pairs is solved by BATCHED cyclic reduction
   (ops/tridiag.py) — ceil(log2 Ns) parallel levels replacing the
   "NOTE: Cannot be parallelized" sequential loop (:815-817);
-* the TPU speed path (SdunesOpts.factor_dtype/f32_phase_tol/chain_backend)
-  runs the two-phase f32 -> refined-f64 schedule of the tdunes solvers and
-  puts the banded sweeps on the lane-batched multistage chain kernels
-  (scenario lanes — chain_kernels.chain_full_solve_mat).
+* the mixed-precision path (SdunesOpts.factor_dtype/f32_phase_tol) runs
+  the two-phase f32 -> refined-f64 schedule of the tdunes solvers, with the
+  banded sweeps on the multistage chain factorization (scenarios as
+  chains).
 """
 
 from __future__ import annotations
@@ -82,7 +82,7 @@ class SdunesOpts:
     # the direction is not descent, fall back to a curvature-scaled
     # gradient-ascent step on the dual (guaranteed descent on f = -g).
     grad_fallback: bool = True
-    # --- TPU speed path (mirrors TdunesOpts; see tdunes.py docs) ---
+    # --- mixed-precision path (mirrors TdunesOpts; see tdunes.py docs) ---
     # factorization/solve dtype for the banded per-scenario systems and the
     # coupling ("Jay") system; "float32" + refine_steps>0 restores
     # f64-quality directions at f32 factorization cost.
@@ -91,12 +91,8 @@ class SdunesOpts:
     # coarse all-f32 phase down to this stationarity error (or stall),
     # then the data-dtype phase with refinement; 0 disables.
     f32_phase_tol: float = 0.0
-    # "pallas" fuses each banded sweep into one lane-batched TPU kernel
-    # (scenarios on the lane dimension — the identical layout to the
-    # multistage chains); "xla" is the portable scan path.
-    chain_backend: str = "xla"  # xla | pallas
     # run the final (data-dtype) phase in df64 two-f32 double-float
-    # arithmetic instead of XLA-emulated f64 (solvers/sd_df64.py — the
+    # arithmetic instead of native f64 (solvers/sd_df64.py — the
     # sdunes mirror of the tdunes_ms df64 phase, VERDICT r3 #3).
     # Requires f64 data + factor_dtype="float32".
     df64_phase: bool = False
@@ -106,15 +102,14 @@ class SdunesOpts:
     # replicated. Cross-device traffic: all-gathers of the Jay boundary
     # blocks (Gram [Ns, nl, nl] per factorization, Kv/u-coupling rows per
     # solve) + scalar reductions — the reference's scenario fork-join
-    # (dual_Newton_scenarios.c:332-345, :528-563). The df64/Pallas paths
-    # are per-device-global and bypassed under an axis. None = single-dev.
+    # (dual_Newton_scenarios.c:332-345, :528-563). The df64 phase is
+    # per-device-global and bypassed under an axis. None = single-dev.
     axis_name: str | None = None
 
     def _as_tdunes(self) -> TdunesOpts:
         return TdunesOpts(reg_type=self.reg_type, reg_tol=self.reg_tol,
                           reg_value=self.reg_value,
-                          factor_dtype=self.factor_dtype,
-                          chain_backend=self.chain_backend)
+                          factor_dtype=self.factor_dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -408,16 +403,7 @@ def _jay_solve(diag, off, rhs, opts: SdunesOpts, extra_shift=None):
     shift = (opts.reg_value * scJ * scJ).astype(fdt) \
         if opts.reg_type != "none" else None
     reg_tol = opts.reg_tol if opts.reg_type == "on_the_fly" else -1.0
-    from treeqp_tpu.ops.jay_kernel import jay_supported, jay_cr_solve
-    import os
-    P, b = dg.shape[0], dg.shape[-1]
-    if (opts.chain_backend == "pallas" and jay_supported(P, b)
-            and not os.environ.get("TREEQP_NO_JAY_KERNEL")):
-        # single-launch Pallas cyclic reduction (~200 us -> ~25 us at
-        # Ns = 256; the XLA level recursion is launch-bound)
-        x = jay_cr_solve(dg, of, r, shift=shift, reg_tol=reg_tol)
-    else:
-        x = tridiag_cr_solve(dg, of, r, shift=shift, reg_tol=reg_tol)
+    x = tridiag_cr_solve(dg, of, r, shift=shift, reg_tol=reg_tol)
     return x.astype(out_dt) * scJ
 
 
@@ -442,9 +428,7 @@ def _sd_factor(D, Ssub, topts: TdunesOpts, extra_shift=None):
         # equilibration would amplify the null-space direction components
         # by 1/diag. Per-row conditional shift on the raw diagonal.
         shift = jnp.where(dg < topts.reg_tol, topts.reg_value, 0.0)
-        # diagonal add as an eye broadcast (a dynamic-index diagonal
-        # scatter serializes on TPU — BENCH_NOTES "the scatter was the
-        # floor")
+        # diagonal add as an eye broadcast
         D = D + shift[..., :, None] * jnp.eye(D.shape[-1], dtype=D.dtype)
         dg = dg + shift
     sc = jax.lax.rsqrt(jnp.maximum(dg, 1e-12))
@@ -459,38 +443,35 @@ def _sd_factor(D, Ssub, topts: TdunesOpts, extra_shift=None):
 
 def _sd_full_solve(fact, rhs, topts: TdunesOpts):
     """Multi-RHS FULL solve of the banded mu-systems: rhs [Ns, Nh, nx, m]
-    (data dtype) -> Mmm^-1 rhs (data dtype). Pallas backend: ONE fused
-    kernel for the whole backward+forward sweep over all scenarios."""
+    (data dtype) -> Mmm^-1 rhs (data dtype): backward then forward scan
+    over the stages, batched over scenarios."""
     out_dt = rhs.dtype
     sc = fact["sc"]
     Ls, CUs = fact["Ls"], fact["CUs"]
     r = (rhs * sc[..., None]).astype(Ls.dtype)
     rr = jnp.flip(r, 1)
-    if topts.chain_backend == "pallas":
-        from treeqp_tpu.ops import chain_kernels as ck
-        z = ck.chain_full_solve_mat(Ls, CUs, rr)
-    else:
-        def bwd(acc, inp):
-            Lj, CUj, rj = inp
-            y = jax.lax.linalg.triangular_solve(
-                Lj, rj - acc, left_side=True, lower=True)
-            return CUj @ y, y
-        _, ys = jax.lax.scan(
-            bwd, jnp.zeros_like(rr[:, 0]),
-            (jnp.flip(Ls, 1).swapaxes(0, 1), jnp.flip(CUs, 1).swapaxes(0, 1),
-             jnp.flip(rr, 1).swapaxes(0, 1)))
-        ys = jnp.flip(ys.swapaxes(0, 1), 1)
 
-        def fwd(zprev, inp):
-            Lj, CUj, yj = inp
-            z = jax.lax.linalg.triangular_solve(
-                Lj, yj - CUj.swapaxes(-1, -2) @ zprev, left_side=True,
-                lower=True, transpose_a=True)
-            return z, z
-        _, z = jax.lax.scan(fwd, jnp.zeros_like(rr[:, 0]),
-                            (Ls.swapaxes(0, 1), CUs.swapaxes(0, 1),
-                             ys.swapaxes(0, 1)))
-        z = z.swapaxes(0, 1)
+    def bwd(acc, inp):
+        Lj, CUj, rj = inp
+        y = jax.lax.linalg.triangular_solve(
+            Lj, rj - acc, left_side=True, lower=True)
+        return CUj @ y, y
+    _, ys = jax.lax.scan(
+        bwd, jnp.zeros_like(rr[:, 0]),
+        (jnp.flip(Ls, 1).swapaxes(0, 1), jnp.flip(CUs, 1).swapaxes(0, 1),
+         jnp.flip(rr, 1).swapaxes(0, 1)))
+    ys = jnp.flip(ys.swapaxes(0, 1), 1)
+
+    def fwd(zprev, inp):
+        Lj, CUj, yj = inp
+        z = jax.lax.linalg.triangular_solve(
+            Lj, yj - CUj.swapaxes(-1, -2) @ zprev, left_side=True,
+            lower=True, transpose_a=True)
+        return z, z
+    _, z = jax.lax.scan(fwd, jnp.zeros_like(rr[:, 0]),
+                        (Ls.swapaxes(0, 1), CUs.swapaxes(0, 1),
+                         ys.swapaxes(0, 1)))
+    z = z.swapaxes(0, 1)
     return jnp.flip(z, 1).astype(out_dt) * sc[..., None]
 
 
@@ -501,8 +482,8 @@ def _sd_apply_M(sqp, sol, cmask, dm, dmu, dlam_flat, AT=None, BT=None,
 
     FACTORED application (A (qt o (A' v)) matvecs on pre-transposed
     operands) instead of materialized D/Ssub/Uown blocks: the blocks feed
-    only the f32 factorization, and materializing them in emulated f64
-    costs ~10x the whole rest of the Newton iteration on TPU.
+    only the f32 factorization, and materializing them in the data dtype
+    would cost more than the rest of the Newton iteration.
 
     Mmm dmu (banded) + Mml dlam (coupling columns, own pair +, prev -);
     Mlm dmu (per-pair kv differences) + Mll dlam (tridiag of rt diagonals).
@@ -557,8 +538,7 @@ def _sd_newton_loop(sqp: ScenarioQP, lam0, mu0, opts: SdunesOpts, it0,
     """One sdunes dual-Newton while-loop at the dtype of ``sqp``'s data.
 
     The per-iteration linear algebra is restructured around ONE multi-RHS
-    full solve of the banded per-scenario systems, Z = Mmm^-1 [r_mu, U]
-    (one fused Pallas launch on the speed path):
+    full solve of the banded per-scenario systems, Z = Mmm^-1 [r_mu, U]:
       Gram_t = U_t' Z_u,t  (the Jay Schur blocks),
       Kv_t   = U_t' z_mu,t (the Jay RHS fold),
       dmu    = z_mu - Z_u coef(dlam) (the back-substitution)
@@ -825,17 +805,13 @@ def sdunes_solve(sqp: ScenarioQP, lam0=None, mu0=None,
     With ``opts.f32_phase_tol > 0`` (f64 data, factor_dtype=float32) the
     solve runs the two-phase precision schedule of the tdunes solvers: a
     coarse all-f32 phase to f32_phase_tol or stall, then the f64 phase
-    with f32-factored iterative refinement — the sdunes TPU speed path
-    (chain_backend="pallas" puts the banded per-scenario sweeps on the
-    lane-batched multistage chain kernels).
+    with f32-factored iterative refinement.
     """
     meta = sqp.meta
     Ns, Nh, Nr = meta.Ns, meta.Nh, meta.Nr
     nx = sqp.b.shape[-1]
     nu = sqp.r.shape[-1]
     dt = sqp.b.dtype
-    from treeqp_tpu.solvers.tdunes import _tpu_const_barrier
-    sqp = _tpu_const_barrier(sqp)  # see tdunes._tpu_const_barrier
     cmask = _coupling_masks(meta, dt)
     # explicit-SPMD context: scenario arrays are the LOCAL shard inside
     # shard_map; lambda / the Jay system stay replicated (round 5)

@@ -1,6 +1,6 @@
 """Scenario-sharded dual Newton for multistage robust-MPC trees.
 
-The TPU-native scaling path (SURVEY.md 5.7/5.8). A multistage tree
+The scenario-parallel scaling path (SURVEY.md 5.7/5.8). A multistage tree
 (branch ``md`` ways for ``Nr`` stages, then chains to horizon ``Nh``,
 reference ``setup_multistage_tree`` tree.c:247-280) splits into:
 
@@ -37,7 +37,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from treeqp_tpu.core.qp_data import TreeQPIn, TreeQPOut
-from treeqp_tpu.utils.tree import TreeStructure
+from treeqp_tpu.utils.tree import TreeStructure, kid_sum
 from treeqp_tpu.solvers import tdunes as td
 from treeqp_tpu.solvers.tdunes import (
     TdunesOpts, TDUNES_OPTIMAL, TDUNES_MAX_ITER, TDUNES_NOT_DESCENT)
@@ -88,6 +88,9 @@ class _MsMeta:
     full_topo: TreeStructure
     # crown node ids of the S chain roots (stage-Nr nodes), scenario order
     root_ids: tuple
+    # devices that GSPMD splits the chain arrays over
+    # (parallel.sharding.shard_multistage sets it)
+    chain_shards: int = 1
 
     def __hash__(self):
         return hash((self.md, self.Nr, self.Nh, self.crown_topo, self.full_topo))
@@ -286,10 +289,8 @@ def _chain_residual(ms: MultistageQP, ch, x_crown, u_crown, AT=None, BT=None,
                     shard=None):
     """res[s,j] = A x_parent + B u_parent + b - x  over all chain edges.
 
-    ``AT``/``BT`` are pre-transposed copies of ms.A/ms.B (swapaxes(2, 3)):
-    einsums contracting over the minor-most dim are pathologically slow in
-    emulated f64 on TPU (layout changes); passing the transpose once per
-    solve keeps the contraction on the fast axis."""
+    ``AT``/``BT`` are pre-transposed copies of ms.A/ms.B (swapaxes(2, 3)),
+    passed once per solve so the contraction runs over the minor axis."""
     rid = _rid_of(ms, shard)
     if AT is None:
         AT, BT = ms.A.swapaxes(2, 3), ms.B.swapaxes(2, 3)
@@ -329,19 +330,46 @@ def _chain_blocks(ms: MultistageQP, ch, qt_crown, rt_crown, dtype=None,
     return Wc, Utc
 
 
-def _chain_factor(Wc, Utc, opts: TdunesOpts):
+def _equilibrate_chain(Wc, Utc, s_root):
+    """Jacobi equilibration of the chain blocks: unit diagonals, with the
+    coupling rows scaled by the parent's scale (``s_root`` [S, nx] for the
+    chain roots' crown parents). Returns (Wc, Utc, sc)."""
+    sc = 1.0 / jnp.sqrt(jnp.maximum(
+        jnp.diagonal(Wc, axis1=2, axis2=3), 1e-12))
+    scp = jnp.concatenate([s_root[:, None].astype(sc.dtype),
+                           sc[:, :-1]], axis=1)
+    Wc = Wc * sc[..., :, None] * sc[..., None, :]
+    Utc = Utc * scp[..., :, None] * sc[..., None, :]
+    return Wc, Utc, sc
+
+
+def _triton_sweeps(meta, shard=None) -> bool:
+    """Whether the chain sweeps run as the Triton kernels
+    (ops/chain_kernels.py) rather than as the ``lax.scan`` reference: on a
+    GPU, over whole chains on one device or over the local block inside
+    shard_map (``shard``). Chains that GSPMD splits over devices
+    (``meta.chain_shards > 1``) take the scans, which GSPMD partitions; the
+    kernels have no partitioning rule."""
+    return (jax.default_backend() == "gpu"
+            and (shard is not None or meta.chain_shards == 1))
+
+
+def _chain_factor(Wc, Utc, opts: TdunesOpts, triton: bool = False):
     """Banded backward factorization per chain, scan j = L-1 .. 0.
 
     Returns per-step factors (Lc, CU) and the Schur complement flowing into
     the crown. Mirrors the reference per-scenario reverse Cholesky
     (dual_Newton_scenarios.c:590-689) on the tree-formulation blocks.
+    ``triton`` runs the sweep as one kernel; its factors are then in the
+    kernel layout, which only the kernel sweeps below read.
     """
     out_dt = Wc.dtype
     if opts.factor_dtype == "float32":
         Wc, Utc = Wc.astype(jnp.float32), Utc.astype(jnp.float32)
-    if opts.chain_backend == "pallas":
+    if triton:
         from treeqp_tpu.ops import chain_kernels as ck
-        Ls, CUs, schur0 = ck.chain_factor(Wc, Utc)
+        Ls, CUs, schur0 = ck.chain_factor(
+            Wc, Utc, reg=(opts.reg_type, opts.reg_value, opts.reg_tol))
         return Ls, CUs, schur0.astype(out_dt)
     S, L, nx, _ = Wc.shape
     dt = Wc.dtype
@@ -360,12 +388,12 @@ def _chain_factor(Wc, Utc, opts: TdunesOpts):
     return Ls, CUs, schur0.astype(out_dt)
 
 
-def _chain_solve_bwd(Ls, CUs, res_ch, opts: TdunesOpts = TdunesOpts()):
+def _chain_solve_bwd(Ls, CUs, res_ch, triton: bool = False):
     """RHS backward sweep with stored factors: y_j = L^-1(r_j - CU y_{j+1}-
     style accumulation); returns y and the RHS update into the crown."""
     out_dt = res_ch.dtype
     res_ch = res_ch.astype(Ls.dtype)
-    if opts.chain_backend == "pallas":
+    if triton:
         from treeqp_tpu.ops import chain_kernels as ck
         ys, radd0 = ck.chain_solve_bwd(Ls, CUs, res_ch)
         return ys, radd0.astype(out_dt)
@@ -384,14 +412,14 @@ def _chain_solve_bwd(Ls, CUs, res_ch, opts: TdunesOpts = TdunesOpts()):
     return ys, radd0.astype(out_dt)
 
 
-def _chain_forward(Ls, CUs, ys, dlam_root, opts: TdunesOpts = TdunesOpts()):
+def _chain_forward(Ls, CUs, ys, dlam_root, triton: bool = False):
     """Forward substitution down each chain, scan j = 0 .. L-1.
 
     dlam[s,j] = L^-T (y[s,j] - CU[s,j]' dlam_parent).
     ``dlam_root`` [S, nx] is the crown's dlam at the edge into each chain root.
     """
     out_dt = dlam_root.dtype
-    if opts.chain_backend == "pallas":
+    if triton:
         from treeqp_tpu.ops import chain_kernels as ck
         dls = ck.chain_forward(Ls, CUs, ys, dlam_root.astype(Ls.dtype))
         return dls.astype(out_dt)
@@ -447,8 +475,7 @@ def _ms_apply_M(ms: MultistageQP, cr, ch, dlam_cr, dlam_ch, prep_cr,
     nxc = qp.A.shape[-1]
     ABr = jnp.concatenate([qp.A, qp.B], axis=2)
     AtBtL = jnp.einsum("nji,nj->ni", ABr, dlam_cr)
-    sum_AB = jax.ops.segment_sum(AtBtL[1:], prep_cr.par[1:],
-                                 num_segments=prep_cr.Nn)
+    sum_AB = kid_sum(AtBtL, prep_cr.topo)
     sum_A, sum_B = sum_AB[..., :nxc], sum_AB[..., nxc:]
     eq, er = _chain_root_contrib(ms, dlam_ch, shard)
     xl = cr["qtilde"] * (dlam_cr - sum_A - eq) * xm
@@ -513,9 +540,7 @@ def _schur_scatter(schur0, g_of, rows, prep, nxm, dtype):
     """Scatter the per-scenario [nxm, nxm] chain-root Schur blocks into
     the [NpG, G, G] crown-group layout (each block lands on its group's
     kid-slot diagonal block) as K static slot matmuls + static block
-    writes. Replaces a `.at[g_of, rows, rows].add` scatter, which XLA
-    serializes on TPU (~180 us for 256 blocks — the dominant cost of the
-    whole factorize program, scripts/prof_fact.py)."""
+    writes, in place of a `.at[g_of, rows, rows].add` scatter."""
     NpG, G = prep.NpG, prep.G
     S = schur0.shape[0]
     mats = _slot_mats(g_of, rows, NpG, nxm)
@@ -547,62 +572,27 @@ def _rhs_scatter(radd0, g_of, rows, prep, nxm, dtype):
 
 
 def _ms_factorize(ms, qtilde_cr, rtilde_cr, qt_ch, rt_ch, opts, prep_cr,
-                  g_of, rows, nrxm_cr, s_node_dt, chain_lanes=None,
-                  shard=None):
+                  g_of, rows, nrxm_cr, s_node_dt, shard=None):
     """Shared factorize of the crown+chains dual Hessian (f64 and df64
-    loops): blocks + Jacobi equilibration + chain/crown factorization.
-
-    On the Pallas clipping path the ENTIRE chain side — block build,
-    equilibration, backward factorization — runs as ONE kernel launch
-    (chain_kernels.chain_blocks_factor); the XLA path mirrors it
-    op-by-op. The launch-count reduction is the point: the per-iteration
-    factorize was ~47 XLA fusions and launch latency dominates the TPU
-    Newton iteration (BENCH_NOTES.md round 3)."""
+    loops): blocks + Jacobi equilibration + chain/crown factorization."""
     meta = ms.meta
-    f32 = jnp.float32
-    fdt = f32 if opts.factor_dtype == "float32" else None
+    fdt = jnp.float32 if opts.factor_dtype == "float32" else None
     prep = prep_cr
     nxm = meta.crown_topo.nxm
-    rid = _rid_of(ms, shard)
     ar = np.arange(nxm)
     rows_all = prep.gslot[:, None] * nxm + ar[None, :]
     dad_safe = np.maximum(prep.gdad, 0)
 
-    fused_chain = (opts.chain_backend == "pallas"
-                   and opts.factor_dtype == "float32"
-                   and opts.stage_solver == "clipping")
-    from treeqp_tpu.ops import crown_kernels as ckr
-    fused_crown = fused_chain and ckr.crown_supported(prep, opts)
-
-    if fused_crown:
-        # analytic diagonal of the crown W blocks (the only crown-block
-        # quantity needed OUTSIDE the fused kernels): diag = sum_n
-        # ABk[..,n]^2 ztp[n] + kids' own qtilde — a couple of XLA fusions
-        # instead of the full block build
-        kidsP, kv = prep.kidsP, jnp.asarray(prep.kvalid, f32)
-        A32 = ms.crown.A.astype(f32)
-        B32 = ms.crown.B.astype(f32)
-        ABk = jnp.concatenate([A32[kidsP], B32[kidsP]],
-                              axis=-1) * kv[:, :, None, None]
-        qtilde32 = qtilde_cr.astype(f32)
-        ztp = jnp.concatenate([qtilde32, rtilde_cr.astype(f32)],
-                              axis=-1)[prep.gnodes]
-        dvals = jnp.where(kv[:, :, None] > 0, qtilde32[kidsP],
-                          jnp.ones((), f32)).reshape(prep.NpG, prep.G)
-        diagW = (jnp.einsum("gkin,gn,gkin->gki", ABk, ztp, ABk)
-                 .reshape(prep.NpG, prep.G) + dvals)
-        sW = jax.lax.rsqrt(jnp.maximum(diagW, 1e-12))
-    else:
-        W, Ut = td._build_dual_hessian(
-            ms.crown, {"qtilde": qtilde_cr, "rtilde": rtilde_cr}, None,
-            opts, prep, dtype=fdt)
-        sW = 1.0 / jnp.sqrt(jnp.maximum(
-            jnp.diagonal(W, axis1=1, axis2=2), 1e-12))
-        sUt_rows = sW[dad_safe[:, None], rows_all]
-        W = W * sW[:, :, None] * sW[:, None, :]
-        Ut = Ut * sUt_rows[:, :, None] * sW[:, None, :]
-    # local-scenario view for the chain-side uses (ztp_root/scp); the
-    # crown-side Schur scatter keeps the GLOBAL indices (post all-gather)
+    W, Ut = td._build_dual_hessian(
+        ms.crown, {"qtilde": qtilde_cr, "rtilde": rtilde_cr}, None,
+        opts, prep, dtype=fdt)
+    sW = 1.0 / jnp.sqrt(jnp.maximum(
+        jnp.diagonal(W, axis1=1, axis2=2), 1e-12))
+    sUt_rows = sW[dad_safe[:, None], rows_all]
+    W = W * sW[:, :, None] * sW[:, None, :]
+    Ut = Ut * sUt_rows[:, :, None] * sW[:, None, :]
+    # local-scenario view for the chain-side uses (scp); the crown-side
+    # Schur scatter keeps the GLOBAL indices (post all-gather)
     if shard is not None:
         g_of_loc, rows_loc = shard.g_of_l, shard.rows_l
     else:
@@ -610,98 +600,36 @@ def _ms_factorize(ms, qtilde_cr, rtilde_cr, qt_ch, rt_ch, opts, prep_cr,
     s_root = sW[g_of_loc[:, None], rows_loc]
     s_node = td._group_to_nodes_mm(sW, prep, s_node_dt) * nrxm_cr
 
-    if fused_chain:
-        from treeqp_tpu.ops import chain_kernels as ck
-        rid_loc = _rid_of(ms, shard)
-        ztp_root = jnp.concatenate([qtilde_cr[rid_loc], rtilde_cr[rid_loc]],
-                                   axis=-1).astype(f32)
-        if chain_lanes is not None:
-            # qt_ch / rt_ch arrive in the eval kernel's LANE layout — feed
-            # them straight through (ztp assembly happens in-kernel)
-            Ls, CUs, schur0, sc = ck.chain_blocks_factor_lanes(
-                chain_lanes["ABt"], qt_ch, rt_ch, ztp_root,
-                s_root.astype(f32))
-        else:
-            ABt = jnp.concatenate([ms.A, ms.B], axis=3).astype(f32)
-            ztp_ch = jnp.concatenate([qt_ch, rt_ch], axis=-1).astype(f32)
-            ztp_c = jnp.concatenate([ztp_root[:, None], ztp_ch[:, :-1]],
-                                    axis=1)
-            Ls, CUs, schur0, sc = ck.chain_blocks_factor(
-                ABt, ztp_c, qt_ch.astype(f32), s_root.astype(f32))
-    else:
-        Wc, Utc = _chain_blocks(ms, {"qt": qt_ch, "rt": rt_ch},
-                                qtilde_cr, rtilde_cr, dtype=fdt, shard=shard)
-        sc = 1.0 / jnp.sqrt(jnp.maximum(
-            jnp.diagonal(Wc, axis1=2, axis2=3), 1e-12))
-        scp = jnp.concatenate([s_root[:, None].astype(sc.dtype),
-                               sc[:, :-1]], axis=1)
-        Wc = Wc * sc[..., :, None] * sc[..., None, :]
-        Utc = Utc * scp[..., :, None] * sc[..., None, :]
-        Ls, CUs, schur0 = _chain_factor(Wc, Utc, opts)
+    Wc, Utc = _chain_blocks(ms, {"qt": qt_ch, "rt": rt_ch},
+                            qtilde_cr, rtilde_cr, dtype=fdt, shard=shard)
+    Wc, Utc, sc = _equilibrate_chain(Wc, Utc, s_root)
+    Ls, CUs, schur0 = _chain_factor(Wc, Utc, opts,
+                                    _triton_sweeps(meta, shard))
 
-    if fused_crown:
-        sUt_rows = sW[dad_safe[:, None], rows_all]
-        if shard is not None:
-            schur0 = shard.gather_s(schur0)  # [S, nx, nx] boundary form
-        Wadd = -_schur_scatter(schur0, g_of, rows, prep, nxm, f32)
-        reg = opts.reg_value if opts.reg_type == "always" else 0.0
-        CholW, CholUt = ckr.crown_blocks_factor(
-            ABk, ztp, dvals, sW, sUt_rows, Wadd, prep, reg=reg)
-        crown_fact = dict(kind="pallas", CholW=CholW, CholUt=CholUt)
-    else:
-        if shard is not None:
-            schur0 = shard.gather_s(schur0)  # [S, nx, nx] boundary form
-        W = W - _schur_scatter(schur0, g_of, rows, prep, nxm, W.dtype)
-        crown_fact = td._tree_chol_factor(W, Ut, opts, prep)
+    if shard is not None:
+        schur0 = shard.gather_s(schur0)  # [S, nx, nx] boundary form
+    W = W - _schur_scatter(schur0, g_of, rows, prep, nxm, W.dtype)
+    crown_fact = td._tree_chol_factor(W, Ut, opts, prep)
     return dict(Ls=Ls, CUs=CUs, CholW=crown_fact["CholW"],
                 CholUt=crown_fact["CholUt"], s_node=s_node, sc=sc)
 
 
-def _solve_backends(prep_cr, meta, opts):
-    """(crown_kind, fused): which kernel paths the Newton solve uses."""
-    crown_kind, fused = None, False
-    if opts.chain_backend == "pallas":
-        from treeqp_tpu.ops import crown_kernels as ckr
-        from treeqp_tpu.ops import system_kernels as sk
-        if ckr.crown_supported(prep_cr, opts):
-            crown_kind = "pallas"
-            fused = sk.system_supported(prep_cr, meta, opts)
-    return crown_kind, fused
-
-
 def _make_ms_solve(fact, meta, prep_cr, opts, dt, nrxm_cr, g_of, rows, rid,
-                   crown_kind, fused, shard=None):
-    """Build solve(rcr, rch) -> (dcr, dch) from stored factors.
+                   shard=None):
+    """Build solve(rcr, rch) -> (dcr, dch) from stored factors: chain
+    backward sweep, crown solve, chain forward sweep.
 
     Shared by the f32/f64 loop (_ms_newton_loop) and the df64 loop
-    (ms_df64) — the factors/solves are f32 either way. With ``fused`` the
-    whole three-sweep solve is ONE Pallas launch (ops/system_kernels.py);
-    otherwise chain backward / crown / chain forward run as separate
-    kernels with XLA glue."""
+    (ms_df64), whose factors and solves are f32."""
     Ls, CUs = fact["Ls"], fact["CUs"]
     s_node, sc = fact["s_node"], fact["sc"]
-    if fused:
-        from treeqp_tpu.ops import system_kernels as sk
-
-        def solve(rcr, rch):
-            rcr_s, rch_s = rcr * s_node, rch * sc
-            rg = td._nodes_to_group_mm(rcr_s, prep_cr)
-            dg, dch_s = sk.system_solve(
-                Ls, CUs, fact["CholW"], fact["CholUt"],
-                rg, rch_s, prep_cr, meta.root_ids)
-            dcr_s = td._group_to_nodes_mm(dg.astype(dt), prep_cr, dt) * nrxm_cr
-            return dcr_s * s_node, dch_s.astype(dt) * sc
-        return solve
-
     crown_fact = dict(CholW=fact["CholW"], CholUt=fact["CholUt"])
-    if crown_kind:
-        crown_fact["kind"] = crown_kind
-
     rid_loc = shard.rid_l if shard is not None else rid
+    triton = _triton_sweeps(meta, shard)
 
     def solve(rcr, rch):
         rcr_s, rch_s = rcr * s_node, rch * sc
-        ys, radd0 = _chain_solve_bwd(Ls, CUs, rch_s, opts)
+        ys, radd0 = _chain_solve_bwd(Ls, CUs, rch_s, triton)
         if shard is not None:
             radd0 = shard.gather_s(radd0)  # [S, nx] boundary form
         rg = td._nodes_to_group_mm(rcr_s, prep_cr)
@@ -709,7 +637,7 @@ def _make_ms_solve(fact, meta, prep_cr, opts, dt, nrxm_cr, g_of, rows, rid,
                                meta.crown_topo.nxm, rg.dtype)
         dg = td._tree_chol_solve(crown_fact, rg, opts, prep_cr)
         dcr_s = td._group_to_nodes_mm(dg, prep_cr, dt) * nrxm_cr
-        dch_s = _chain_forward(Ls, CUs, ys, dcr_s[rid_loc], opts)
+        dch_s = _chain_forward(Ls, CUs, ys, dcr_s[rid_loc], triton)
         return dcr_s * s_node, dch_s * sc
     return solve
 
@@ -732,8 +660,7 @@ def _ms_newton_loop(ms: MultistageQP, lam0_crown, lam0_chain,
     # explicit-SPMD context under shard_map (chains = local shard)
     shard = (_Shard(meta, opts.axis_name, ms.b.shape[0], prep_cr)
              if opts.axis_name else None)
-    # pre-transposed dynamics: f64 einsums contracting the minor-most dim
-    # are pathologically slow on TPU; computed once, hoisted out of the loop
+    # pre-transposed dynamics, computed once and hoisted out of the loop
     trans = dict(ATc=ms.A.swapaxes(2, 3), BTc=ms.B.swapaxes(2, 3),
                  ATr=ms.crown.A.swapaxes(1, 2), BTr=ms.crown.B.swapaxes(1, 2))
 
@@ -746,76 +673,19 @@ def _ms_newton_loop(ms: MultistageQP, lam0_crown, lam0_chain,
     nxm = meta.crown_topo.nxm
     rows = slot[:, None] * nxm + np.arange(nxm)[None, :]  # [S, nxm]
 
-    # fully-fused chain evaluation (stage solve + root contributions +
-    # dual-value terms in ONE kernel, lane-layout handoff to the factorize
-    # kernel) — the f32 coarse phase on the Pallas clipping path
-    fused_eval = (opts.chain_backend == "pallas"
-                  and opts.stage_solver == "clipping"
-                  and opts.factor_dtype == "float32" and dt == jnp.float32
-                  and shard is None)
-    if fused_eval:
-        from treeqp_tpu.ops import chain_kernels as ck
-        from treeqp_tpu.ops import crown_kernels as ckr
-        data_l = ck.chain_eval_data(ms.A, ms.B, ms.q, ms.r, ms.Qd, ms.Rd,
-                                    ms.xmin, ms.xmax, ms.umin, ms.umax, ms.b)
-        fused_crown_eval = ckr.crown_eval_supported(prep_cr)
-        if fused_crown_eval:
-            xm_cr, um_cr, nrxm_cr2 = td._masks(ms.crown)
-            crown_ed = ckr.crown_eval_data(ms.crown, prep_cr, xm_cr, um_cr,
-                                           nrxm_cr2)
-            NPc, _ = ckr._get_eval_sched(prep_cr)
-        # pre-transposed root-edge dynamics for the fused chain residual's
-        # j=0 row (A_0 z_crown; the j>=1 rows come out of the eval kernel)
-        ab0t = jnp.concatenate([trans["ATc"], trans["BTc"]], axis=2)[:, 0]
-    else:
-        data_l = None
-        fused_crown_eval = False
-
     def stage_solve(lam_cr, lam_ch):
-        if fused_eval:
-            ch = ck.chain_eval(data_l, lam_ch)
-            nxc = ms.A.shape[-1]
-            Ncrown = meta.crown_topo.Nn
-            if fused_crown_eval:
-                # crown stage solve + residual + dual terms: ONE launch
-                extra = jnp.zeros((ch["cqr"].shape[-1], NPc), jnp.float32)
-                extra = extra.at[:, rid].set(ch["cqr"].T.astype(jnp.float32))
-                cr = ckr.crown_eval(crown_ed, lam_cr, extra)
-                return cr, ch
-            extra_q = jnp.zeros((Ncrown, nxc), dt).at[rid].set(
-                ch["cqr"][..., :nxc])
-            extra_r = jnp.zeros((Ncrown, ch["cqr"].shape[-1] - nxc),
-                                dt).at[rid].set(ch["cqr"][..., nxc:])
-            cr = td._stage_solve(ms.crown, lam_cr, crown_data, opts,
-                                 prep_cr, extra_q, extra_r)
-            return cr, ch
         return _ms_stage_solve(ms, crown_data, lam_cr, lam_ch, opts,
                                prep_cr, shard)
 
     def dual_value(lam_cr, lam_ch, cr, ch):
-        if fused_eval:
-            if fused_crown_eval:
-                return cr["fcr"] + ch["fch"]
-            return td._dual_value(ms.crown, lam_cr, cr, crown_data, opts) \
-                + ch["fch"]
         return _ms_dual_value(ms, crown_data, lam_cr, lam_ch, cr, ch, opts,
                               shard)
 
     def residuals_of(cr, ch):
-        if "res" in cr:  # crown residual came out of the fused eval kernel
-            res_cr = cr["res"]
-        else:
-            res_cr = td._dual_residual(ms.crown, cr, prep_cr)
-        if "res_part" in ch:
-            # fused chain residual: rows j>=1 came out of chain_eval; the
-            # j=0 row still needs A_0 z_crown from THIS crown solution
-            zr = jnp.concatenate([cr["x"][rid], cr["u"][rid]], axis=1)
-            res_ch = ch["res_part"].at[:, 0].add(
-                jnp.einsum("sir,si->sr", ab0t, zr.astype(ab0t.dtype)))
-        else:
-            res_ch = _chain_residual(ms, ch, cr["x"], cr["u"],
-                                     AT=trans["ATc"], BT=trans["BTc"],
-                                     shard=shard)
+        res_cr = td._dual_residual(ms.crown, cr, prep_cr)
+        res_ch = _chain_residual(ms, ch, cr["x"], cr["u"],
+                                 AT=trans["ATc"], BT=trans["BTc"],
+                                 shard=shard)
         return res_cr, res_ch
 
     def compute_residuals(lam_cr, lam_ch):
@@ -835,15 +705,9 @@ def _ms_newton_loop(ms: MultistageQP, lam0_crown, lam0_chain,
         return jnp.sqrt(sq) if opts.termination == "twonorm" else sq
 
     def factorize(cr, ch):
-        # blocks + equilibration + chain/crown factorization (fused chain
-        # kernel on the Pallas clipping path) — see _ms_factorize
         return _ms_factorize(ms, cr["qtilde"], cr["rtilde"], ch["qt"],
                              ch["rt"], opts, prep_cr, g_of, rows, nrxm_cr,
-                             dt, chain_lanes=data_l, shard=shard)
-
-    crown_kind, fused = _solve_backends(prep_cr, meta, opts)
-    if shard is not None:
-        fused = False  # whole-system kernel needs the global scenario set
+                             dt, shard=shard)
 
     def active_sig(cr, ch):
         # With clipping, qtilde/rtilde are Qinv-or-0: exact array equality
@@ -865,7 +729,7 @@ def _ms_newton_loop(ms: MultistageQP, lam0_crown, lam0_chain,
 
     def make_solve(fact):
         return _make_ms_solve(fact, meta, prep_cr, opts, dt, nrxm_cr,
-                              g_of, rows, rid, crown_kind, fused, shard)
+                              g_of, rows, rid, shard)
 
     def newton_step(carry, f0, cr, ch, res_cr, res_ch, fact_prev, sig_prev):
         # f0 = f(lam) carried from the previous line search's accepted
@@ -1018,8 +882,7 @@ def _ms_newton_loop(ms: MultistageQP, lam0_crown, lam0_chain,
     # step-then-evaluate structure: the carry always holds the stage
     # solution / residuals / error AT the carried lam, so the termination
     # check is free and the caller gets fresh final solutions without a
-    # re-evaluation (the f64 stage+residual eval is one of the most
-    # expensive single ops on TPU).
+    # re-evaluation.
     def cond(carry):
         (_, _, it, err, status, _, _), _, _, (best, noimp), _, _ = carry
         ok = (err >= opts.tol) & (status == TDUNES_OPTIMAL) & (it < opts.max_iter)
@@ -1059,288 +922,8 @@ def _ms_newton_loop(ms: MultistageQP, lam0_crown, lam0_chain,
             (err0, jnp.zeros((), jnp.int32)), fact0, sig0)
     (lam_cr, lam_ch, it, err, status, _, ls_it), (cr, ch, res_cr, res_ch), \
         _, _, fact_f, sig_f = jax.lax.while_loop(cond, body, init)
-    if fused_eval:
-        # normalize the chain solution (and the handover signature) back to
-        # the canonical [S, L, ...] layout for export / the df64 phase
-        S = ms.b.shape[0]
-        tr = lambda v: jnp.transpose(v[..., :S], (2, 0, 1))
-        ch = dict(x=ch["x"], u=ch["u"], qt=tr(ch["qt"]), rt=tr(ch["rt"]),
-                  xUnc=tr(ch["xUnc"]), uUnc=tr(ch["uUnc"]))
-        sig_f = (sig_f[0], sig_f[1], tr(sig_f[2]), tr(sig_f[3]))
-        if fused_crown_eval:
-            Nc = meta.crown_topo.Nn
-            trc = lambda v: jnp.transpose(v[:, :Nc], (1, 0))
-            cr = dict(cr, xUnc=trc(cr["xUnc"]), uUnc=trc(cr["uUnc"]))
     return (lam_cr, lam_ch, it, status, ls_it, cr, ch, err,
             (fact_f, sig_f))
-
-
-def _mega_applicable(prep_cr, meta, opts) -> bool:
-    """Mega-kernel coarse-phase applicability (ops/iter_kernel.py)."""
-    if (opts.chain_backend != "pallas" or opts.stage_solver != "clipping"
-            or opts.factor_dtype != "float32"
-            or opts.termination != "infnorm" or opts.refine_steps != 0):
-        return False
-    from treeqp_tpu.ops import iter_kernel as ik
-    return ik.iter_supported(prep_cr, meta, opts)
-
-
-def _ms_newton_loop_mega(ms: MultistageQP, lam0_crown, lam0_chain,
-                         opts: TdunesOpts, it0, patience: int = 0):
-    """f32 coarse-phase Newton loop built on the whole-iteration
-    mega-kernel (ops/iter_kernel.py): the common path of every iteration
-    — system solve, tau=1 trial, stage evaluation, residuals, error — is
-    ONE Pallas launch; only acceptance bookkeeping, the reject-only
-    batched line search (vmapped eval-mode kernel calls) and the
-    factorize-on-active-set-change remain outside. Semantics match
-    _ms_newton_loop (same Armijo rule, restart, patience); used only as
-    the coarse phase, so it returns (lam_cr, lam_ch, it, status, ls_it,
-    err, handover) without the stage-solution export.
-    """
-    from treeqp_tpu.ops import chain_kernels as ck
-    from treeqp_tpu.ops import crown_kernels as ckr
-    from treeqp_tpu.ops import iter_kernel as ik
-
-    meta = ms.meta
-    prep_cr = td._get_prep(meta.crown_topo)
-    f32 = jnp.float32
-    dt = f32
-    xm_cr, um_cr, nrxm_cr = td._masks(ms.crown)
-    rid = np.asarray(meta.root_ids)
-    g_of = prep_cr.group_of_node[rid]
-    slot = prep_cr.slot_of_node[rid]
-    nxm = meta.crown_topo.nxm
-    rows = slot[:, None] * nxm + np.arange(nxm)[None, :]
-
-    data_l = ck.chain_eval_data(ms.A, ms.B, ms.q, ms.r, ms.Qd, ms.Rd,
-                                ms.xmin, ms.xmax, ms.umin, ms.umax, ms.b)
-    crown_ed = ckr.crown_eval_data(ms.crown, prep_cr, xm_cr, um_cr, nrxm_cr)
-    NPc, _ = ckr._get_eval_sched(prep_cr)
-    SP = data_l["ABt"].shape[-1]
-    Nn = meta.crown_topo.Nn
-    S = meta.S
-    L = ms.b.shape[1]
-    nx = ms.A.shape[-1]
-
-    lane_cr = lambda v: jnp.pad(v.T, ((0, 0), (0, NPc - Nn)))
-    lane_ch = lambda v: ck._pad_s(jnp.transpose(v, (1, 2, 0)), SP)
-    un_cr = lambda v: v[:, :Nn].T
-    un_ch = lambda v: jnp.transpose(v[..., :S], (2, 0, 1))
-
-    lam_cr_l0 = lane_cr(lam0_crown.astype(f32) * nrxm_cr)
-    lam_ch_l0 = lane_ch(lam0_chain.astype(f32))
-
-    NPg = ckr._get_sched(prep_cr).NPg
-    zero_fact = dict(
-        Lt=jnp.zeros((L, nx, nx, SP), f32),
-        CUt=jnp.zeros((L, nx, nx, SP), f32),
-        CholW=jnp.zeros((prep_cr.G, prep_cr.G, NPg), f32),
-        CholUt=jnp.zeros((nxm, prep_cr.G, NPg), f32),
-        s_node=jnp.zeros((Nn, nxm), f32),
-        sc=jnp.zeros((S, L, nx), f32),
-        s_node_l=jnp.zeros((nxm, NPc), f32),
-        sc_l=jnp.zeros((L, nx, SP), f32))
-
-    def kcall(fact_l, lam_cr_l, lam_ch_l, res_cr_l, res_ch_l, mode):
-        state = dict(lam_cr=lam_cr_l, lam_ch=lam_ch_l,
-                     res_cr=res_cr_l, res_ch=res_ch_l)
-        return ik.newton_iter(data_l, crown_ed, fact_l, state, prep_cr,
-                              meta.root_ids, meta, mode=mode)
-
-    def scal(p):
-        return jnp.sum(p[0]) + jnp.sum(p[1])
-
-    def errof(p):
-        return jnp.maximum(jnp.max(p[0]), jnp.max(p[1]))
-
-    def factorize_l(qtilde_l, rtilde_l, qt_l, rt_l):
-        fact = _ms_factorize(ms, un_cr(qtilde_l), un_cr(rtilde_l), qt_l,
-                             rt_l, opts, prep_cr, g_of, rows, nrxm_cr,
-                             f32, chain_lanes=data_l)
-        # carry node-layout scales too: the df64/f64 phase's solve wrapper
-        # (handover consumer) reads fact["s_node"] / fact["sc"]
-        return dict(Lt=fact["Ls"], CUt=fact["CUs"], CholW=fact["CholW"],
-                    CholUt=fact["CholUt"], s_node=fact["s_node"],
-                    sc=fact["sc"], s_node_l=lane_cr(fact["s_node"]),
-                    sc_l=lane_ch(fact["sc"]))
-
-    def sig_equal(a, b):
-        eq = [jnp.all(x == y) for x, y in zip(a, b)]
-        out = eq[0]
-        for e in eq[1:]:
-            out = out & e
-        return out
-
-    # ---- initial evaluation (factors unused in eval mode)
-    out0 = kcall(zero_fact, lam_cr_l0, lam_ch_l0,
-                 jnp.zeros((nxm, NPc), f32), jnp.zeros((L, nx, SP), f32),
-                 "eval")
-    res_cr0, res_ch0 = out0["res2_cr"], out0["res2_ch"]
-    f0_init = scal(out0["f1p"])
-    err0 = errof(out0["errp"])
-    sets0 = (out0["qtilde"], out0["rtilde"], out0["qt"], out0["rt"])
-    fact0 = factorize_l(*sets0)
-
-    T = min(opts.ls_batch if opts.ls_batch > 0 else 4, opts.ls_max_iter)
-    one = jnp.ones((), f32)
-
-    def newton_step(carry):
-        (lam_cr_l, lam_ch_l, it, err, status, restart, ls_it), \
-            (res_cr_l, res_ch_l, sets), f0, fact_l, sig = carry
-
-        out = kcall(fact_l, lam_cr_l, lam_ch_l, res_cr_l, res_ch_l, "iter")
-        f1 = scal(out["f1p"])
-        dot = scal(out["dotp"])
-        err1 = errof(out["errp"])
-        descent_ok = dot < 1e-10
-        eta = jnp.asarray(2.0 ** -45, dt) * jnp.abs(f0)
-
-        def accepts(f2, tau):
-            return f2 <= f0 + opts.ls_gamma * tau * dot + eta
-
-        acc1 = accepts(f1, one)
-        cand1 = (out["lam2_cr"], out["lam2_ch"], out["res2_cr"],
-                 out["res2_ch"],
-                 (out["qtilde"], out["rtilde"], out["qt"], out["rt"]),
-                 f1, err1)
-
-        def f_at(tau):
-            oe = kcall(fact_l, lam_cr_l + tau * out["dcr"],
-                       lam_ch_l + tau * out["dch"], res_cr_l, res_ch_l,
-                       "eval")
-            return oe
-
-        def quick_path():
-            return cand1 + (jnp.ones((), jnp.int32), jnp.ones((), bool))
-
-        def batch_path():
-            taus = opts.ls_beta ** jnp.arange(1, T + 1, dtype=dt)
-            outs = jax.vmap(f_at)(taus)
-            fs = jnp.sum(outs["f1p"][0], axis=(1, 2)) \
-                + jnp.sum(outs["f1p"][1], axis=(1, 2))
-            errs = jnp.maximum(jnp.max(outs["errp"][0], axis=(1, 2)),
-                               jnp.max(outs["errp"][1], axis=(1, 2)))
-            accs = accepts(fs, taus)
-            any_acc = jnp.any(accs)
-            idx = jnp.argmax(accs)
-            at = lambda a: a[idx]
-
-            def seq_cond(c):
-                tau, f, i, acc, *_ = c
-                return (~acc) & (i < opts.ls_max_iter)
-
-            def seq_body(c):
-                tau, f, i, acc, *_ = c
-                tau2 = opts.ls_beta * tau
-                oe = f_at(tau2)
-                f2 = scal(oe["f1p"])
-                return (tau2, f2, i + 1, accepts(f2, tau2),
-                        lam_cr_l + tau2 * out["dcr"],
-                        lam_ch_l + tau2 * out["dch"],
-                        oe["res2_cr"], oe["res2_ch"],
-                        oe["qtilde"], oe["rtilde"], oe["qt"], oe["rt"],
-                        errof(oe["errp"]))
-
-            # the whole carry is initialized at tau = taus[-1] so that if the
-            # sequential fallback cannot run (T + 1 >= ls_max_iter) the
-            # committed (lam, res, sets, f, err) tuple is self-consistent;
-            # when any_acc holds, `sel` below picks the at(idx) values anyway
-            init = (taus[-1], fs[-1], jnp.full((), T + 1, jnp.int32),
-                    any_acc,
-                    lam_cr_l + taus[-1] * out["dcr"],
-                    lam_ch_l + taus[-1] * out["dch"],
-                    outs["res2_cr"][-1], outs["res2_ch"][-1],
-                    outs["qtilde"][-1], outs["rtilde"][-1],
-                    outs["qt"][-1], outs["rt"][-1], errs[-1])
-            sq = jax.lax.while_loop(seq_cond, seq_body, init)
-            tau_b = jnp.where(any_acc, taus[idx], sq[0])
-            ls_b = jnp.where(any_acc, (idx + 2).astype(jnp.int32), sq[2])
-            acc_b = sq[3]
-            sel = lambda a, b: jnp.where(any_acc, a, b)
-            lam2c = sel(lam_cr_l + taus[idx] * out["dcr"], sq[4])
-            lam2h = sel(lam_ch_l + taus[idx] * out["dch"], sq[5])
-            rc = sel(at(outs["res2_cr"]), sq[6])
-            rh = sel(at(outs["res2_ch"]), sq[7])
-            sets_b = (sel(at(outs["qtilde"]), sq[8]),
-                      sel(at(outs["rtilde"]), sq[9]),
-                      sel(at(outs["qt"]), sq[10]),
-                      sel(at(outs["rt"]), sq[11]))
-            f_b = sel(fs[idx], sq[1])
-            err_b = sel(errs[idx], sq[12])
-            return (lam2c, lam2h, rc, rh, sets_b, f_b, err_b, ls_b, acc_b)
-
-        lam2c, lam2h, rc2, rh2, sets2, f_t, err2, ls_it2, acc = \
-            jax.lax.cond(acc1, quick_path, batch_path)
-
-        maxed = ~acc
-        restart = jnp.where(maxed, restart + 1, 0)
-        full_step = (opts.ls_restart_trigger > 0) & \
-            (restart >= opts.ls_restart_trigger)
-        restart = jnp.where(full_step, 0, restart)
-        sel_fs = lambda a, b: jax.tree_util.tree_map(
-            lambda x, y: jnp.where(full_step, x, y), a, b)
-        lam2c, lam2h = sel_fs((cand1[0], cand1[1]), (lam2c, lam2h))
-        rc2, rh2 = sel_fs((cand1[2], cand1[3]), (rc2, rh2))
-        sets2 = sel_fs(cand1[4], sets2)
-        f_t = jnp.where(full_step, cand1[5], f_t)
-        err2 = jnp.where(full_step, cand1[6], err2)
-
-        keep = descent_ok
-        selk = lambda a, b: jax.tree_util.tree_map(
-            lambda x, y: jnp.where(keep, x, y), a, b)
-        lam_cr2, lam_ch2 = selk((lam2c, lam2h), (lam_cr_l, lam_ch_l))
-        rc2, rh2 = selk((rc2, rh2), (res_cr_l, res_ch_l))
-        sets2 = selk(sets2, sets)
-        f_t = jnp.where(keep, f_t, f0)
-        err2 = jnp.where(keep, err2, err)
-        status = jnp.where(keep, status, TDUNES_NOT_DESCENT)
-
-        sig2 = sets2
-        if opts.reuse_factorization:
-            fact2 = jax.lax.cond(sig_equal(sig2, sig),
-                                 lambda: fact_l, lambda: factorize_l(*sig2))
-        else:
-            fact2 = factorize_l(*sig2)
-        return ((lam_cr2, lam_ch2, it + 1, err2, status, restart, ls_it2),
-                (rc2, rh2, sets2), f_t, fact2, sig2)
-
-    def cond(carry):
-        (_, _, it, err, status, _, _), _, _, _, _, (best, noimp) = carry
-        ok = (err >= opts.tol) & (status == TDUNES_OPTIMAL) & \
-            (it < opts.max_iter)
-        if patience > 0:
-            ok = ok & (noimp < patience)
-        return ok
-
-    def body(carry):
-        core, res_sets, f0, fact_l, sig, (best, noimp) = carry
-        core2, res_sets2, f2, fact2, sig2 = newton_step(
-            (core, res_sets, f0, fact_l, sig))
-        err2 = core2[3]
-        improved = err2 < 0.9 * best
-        best = jnp.minimum(best, err2)
-        noimp = jnp.where(improved, 0, noimp + 1)
-        return core2, res_sets2, f2, fact2, sig2, (best, noimp)
-
-    init = ((lam_cr_l0, lam_ch_l0, jnp.asarray(it0, jnp.int32), err0,
-             jnp.full((), TDUNES_OPTIMAL, jnp.int32),
-             jnp.zeros((), jnp.int32), jnp.zeros((), jnp.int32)),
-            (res_cr0, res_ch0, sets0), f0_init, fact0, sets0,
-            (err0, jnp.zeros((), jnp.int32)))
-    (lam_cr_l, lam_ch_l, it, err, status, _, ls_it), (_, _, sets_f), \
-        _, fact_f, _, _ = jax.lax.while_loop(cond, body, init)
-
-    # handover in the layouts the high-precision phase expects: fact with
-    # node-layout scales, sig as (crown qtilde/rtilde [Nn, *], chain qt/rt
-    # node layout [S, L, *])
-    sig_h = (un_cr(sets_f[0]), un_cr(sets_f[1]),
-             un_ch(sets_f[2]), un_ch(sets_f[3]))
-    fact_h = dict(Ls=fact_f["Lt"], CUs=fact_f["CUt"],
-                  CholW=fact_f["CholW"], CholUt=fact_f["CholUt"],
-                  s_node=fact_f["s_node"], sc=fact_f["sc"])
-    lam_cr = un_cr(lam_cr_l)
-    lam_ch = un_ch(lam_ch_l)
-    return lam_cr, lam_ch, it, status, ls_it, err, (fact_h, sig_h)
 
 
 def _pattern_equal(sig_a, sig_b):
@@ -1374,8 +957,8 @@ def tdunes_ms_solve(ms: MultistageQP, lam0_crown=None, lam0_chain=None,
 
     With ``opts.f32_phase_tol > 0`` (and f64 data + factor_dtype=float32)
     the solve runs TWO phases: a coarse phase with everything — stage
-    solves, residuals, dual values — in f32 (emulated f64 is ~16x slower
-    per op on TPU) down to f32_phase_tol or stall, then the f64 phase with
+    solves, residuals, dual values — in f32 down to f32_phase_tol or
+    stall, then the f64 phase with
     iterative refinement to the final tolerance. Same Newton method, same
     final accuracy; the f64 phase typically needs only 1-3 iterations.
     """
@@ -1385,7 +968,6 @@ def tdunes_ms_solve(ms: MultistageQP, lam0_crown=None, lam0_chain=None,
     meta = ms.meta
     prep_cr = td._get_prep(meta.crown_topo)
     dt = ms.q.dtype
-    ms = td._tpu_const_barrier(ms)  # see tdunes._tpu_const_barrier
     crown_data = td._stage_data(ms.crown, opts)
     xm_cr, um_cr, nrxm_cr = td._masks(ms.crown)
 
@@ -1404,18 +986,10 @@ def tdunes_ms_solve(ms: MultistageQP, lam0_crown=None, lam0_chain=None,
         optsA = dataclasses.replace(
             opts, refine_steps=0, tol=max(opts.f32_phase_tol, opts.tol),
             ls_batch=opts.ls_batch if opts.ls_batch > 0 else 4)
-        if opts.axis_name is None and _mega_applicable(prep_cr, meta, optsA):
-            # whole-iteration mega-kernel loop: ONE launch per common-path
-            # Newton iteration (ops/iter_kernel.py)
-            lamA_cr, lamA_ch, it0, _, _, _, handover = _ms_newton_loop_mega(
-                ms32, lam0_crown.astype(jnp.float32),
-                lam0_chain.astype(jnp.float32), optsA, it0,
-                patience=opts.f32_patience)
-        else:
-            lamA_cr, lamA_ch, it0, _, _, _, _, _, handover = _ms_newton_loop(
-                ms32, lam0_crown.astype(jnp.float32),
-                lam0_chain.astype(jnp.float32), optsA, it0,
-                patience=opts.f32_patience)
+        lamA_cr, lamA_ch, it0, _, _, _, _, _, handover = _ms_newton_loop(
+            ms32, lam0_crown.astype(jnp.float32),
+            lam0_chain.astype(jnp.float32), optsA, it0,
+            patience=opts.f32_patience)
         # f32-phase status is discarded: a not-descent there is expected
         # noise near the f32 residual floor, not a failure
         lam0_crown = lamA_cr.astype(dt)

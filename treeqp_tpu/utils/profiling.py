@@ -158,7 +158,8 @@ def profile_ms_phases(ms, opts=None, nrep=3) -> dict:
                                        prep_cr, dtype=fdt)
         Wc, Utc = tm._chain_blocks(ms, ch, cr["qtilde"], cr["rtilde"],
                                    dtype=fdt)
-        Ls, CUs, schur0 = tm._chain_factor(Wc, Utc, opts)
+        Ls, CUs, schur0 = tm._chain_factor(Wc, Utc, opts,
+                                           tm._triton_sweeps(ms.meta))
         return Ls, schur0, W
 
     out["factorization"] = _time(factor, lamA_cr, lamA_ch, nrep=nrep)

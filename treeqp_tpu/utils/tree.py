@@ -1,6 +1,6 @@
 """Tree topology for tree-structured QPs.
 
-TPU-native re-design of the reference topology layer
+Accelerator re-design of the reference topology layer
 (``treeqp/utils/tree.{h,c}`` — ``struct node`` at tree.h:41-51, ``tree_create``
 at tree.c:171-243, ``setup_multistage_tree`` at tree.c:247-280,
 ``calculate_number_of_nodes`` at tree.c:36-48).
@@ -24,9 +24,43 @@ from __future__ import annotations
 import dataclasses
 from functools import cached_property
 
+import jax.numpy as jnp
 import numpy as np
 
-__all__ = ["TreeStructure", "number_of_nodes_multistage"]
+__all__ = ["TreeStructure", "number_of_nodes_multistage", "kid_sum",
+           "add_by_slot"]
+
+
+# Sums over a node's children. A scatter-add whose targets repeat runs on
+# atomics on a GPU and adds in arrival order, so its result can differ in
+# the last bit from run to run and from device to device; the scenario-
+# sharded solvers branch on such sums on every device, and devices that
+# branch apart deadlock in a collective. These two helpers sum in one
+# fixed order.
+
+
+def kid_sum(v, topo: "TreeStructure"):
+    """out[p] = sum of v[c] over the children c of p (zero on leaves), for
+    node rows v [Nn, ...]: one gather per sibling slot, added in slot
+    order (the deterministic form of ``segment_sum(v[1:], parent[1:])``)."""
+    table = topo.kid_table
+    vz = jnp.concatenate([v, jnp.zeros((1,) + v.shape[1:], v.dtype)])
+    out = vz[table[:, 0]]
+    for k in range(1, table.shape[1]):
+        out = out + vz[table[:, k]]
+    return out
+
+
+def add_by_slot(acc, tgt, slot, valid, upd, n_slots: int):
+    """acc[tgt[i]] += upd[i] over the valid lanes i, where lanes with one
+    target have distinct slots (siblings adding into their parent): one
+    scatter per slot, each with unique targets (the other lanes point past
+    the end of ``acc`` and are dropped), applied in slot order."""
+    past = acc.shape[0] + jnp.arange(tgt.shape[0], dtype=tgt.dtype)
+    for k in range(n_slots):
+        t = jnp.where(valid & (slot == k), tgt, past)
+        acc = acc.at[t].add(upd, mode="drop", unique_indices=True)
+    return acc
 
 
 def number_of_nodes_multistage(md: int, Nr: int, Nh: int) -> int:
@@ -130,6 +164,15 @@ class TreeStructure:
         for i in range(1, self.Nn):
             out[self.parent[i]].append(i)
         return tuple(tuple(k) for k in out)
+
+    @cached_property
+    def kid_table(self) -> np.ndarray:
+        """[Nn, max(Kmax, 1)] children of each node in sibling order,
+        padded with the out-of-range id Nn."""
+        out = np.full((self.Nn, max(self.Kmax, 1)), self.Nn, dtype=np.int32)
+        for p, ks in enumerate(self.kids):
+            out[p, : len(ks)] = ks
+        return out
 
     @cached_property
     def sib_index(self) -> np.ndarray:
